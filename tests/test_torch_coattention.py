@@ -1,0 +1,160 @@
+"""The port's flash attention (plain version, as its wrapper runs it on the
+CPU) against the JAX package's Pallas kernel and its dense attention.
+
+The five cases of tests/test_pallas_coattention.py, on the same numpy
+inputs fed to both packages, at the JAX package's own kernel tolerance
+(atol/rtol 2e-5 in f32). The JAX kernel runs in interpret mode on the CPU.
+The CUDA kernel itself is held against this plain version on the card by
+chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests import torch_port_helpers  # noqa: F401  (caps torch threads)
+from vilbert_multitask_tpu.ops.attention import (
+    mask_to_bias as jax_mask_to_bias,
+    multi_head_attention as jax_mha,
+)
+from vilbert_multitask_tpu.ops.coattention import (
+    flash_cross_attention as jax_flash,
+)
+from vilbert_multitask_tpu_torch.ops import coattention
+from vilbert_multitask_tpu_torch.ops.attention import (
+    mask_to_bias,
+    multi_head_attention,
+)
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(seed, B, Nq, Nk, H, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Nq, H, D)).astype(np.float32),
+            rng.normal(size=(B, Nk, H, D)).astype(np.float32),
+            rng.normal(size=(B, Nk, H, D)).astype(np.float32))
+
+
+def _both(q, k, v, mask, **jax_kw):
+    """(port plain, JAX Pallas, JAX dense) on the same inputs."""
+    bias = mask_to_bias(torch.from_numpy(mask))
+    port = coattention.flash_cross_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), bias).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jbias = jax_mask_to_bias(jnp.asarray(mask))
+    pallas = np.asarray(jax_flash(jq, jk, jv, jbias, **jax_kw))
+    dense = np.asarray(jax_mha(jq, jk, jv, jbias)[0])
+    return port, pallas, dense
+
+
+CASES = {
+    # 38 text tokens x 101 regions — the serving geometry.
+    "serving_2x38x101x8x128": dict(seed=0, shape=(2, 38, 101, 8, 128),
+                                   keep=0.9),
+    # Nk spanning several key tiles: the online-softmax recurrence.
+    "several_kv_blocks_1x16x300x2x64": dict(
+        seed=1, shape=(1, 16, 300, 2, 64), keep=1.0,
+        jax_kw=dict(block_q=8, block_k=64)),
+    # The visual self-attention geometry: 101 x 101 regions, 8 x 128.
+    "visual_2x101x101x8x128": dict(seed=11, shape=(2, 101, 101, 8, 128),
+                                   keep=0.8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_kernel_and_dense(case):
+    c = CASES[case]
+    B, Nq, Nk, H, D = c["shape"]
+    q, k, v = _qkv(c["seed"], B, Nq, Nk, H, D)
+    rng = np.random.default_rng(c["seed"] + 1)
+    mask = (rng.random((B, Nk)) < c["keep"]).astype(np.int32)
+    mask[:, 0] = 1
+    port, pallas, dense = _both(q, k, v, mask, **c.get("jax_kw", {}))
+    assert port.shape == (B, Nq, H, D) and port.dtype == np.float32
+    np.testing.assert_allclose(port, pallas, **TOL)
+    np.testing.assert_allclose(port, dense, **TOL)
+
+
+def test_masked_keys_do_not_leak():
+    """Garbage in a fully masked key tail leaves the context unchanged, and
+    both packages agree on it."""
+    q, k, v = _qkv(2, 1, 8, 40, 2, 32)
+    mask = np.concatenate([np.ones((1, 25), np.int32),
+                           np.zeros((1, 15), np.int32)], axis=1)
+    port, pallas, dense = _both(q, k, v, mask)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, 25:] = 1e3
+    v2[:, 25:] = -1e3
+    port2, pallas2, _ = _both(q, k2, v2, mask)
+    np.testing.assert_allclose(port2, port, atol=1e-5)
+    np.testing.assert_allclose(port, pallas, **TOL)
+    np.testing.assert_allclose(port2, pallas2, **TOL)
+    np.testing.assert_allclose(port, dense, **TOL)
+
+
+def test_all_masked_row_guard():
+    """A batch row whose keys are ALL masked: the -10000 bias shifts every
+    score equally, so the row is a plain softmax over its raw scores, and
+    the ``max(l, 1e-30)`` guard leaves it finite in both packages."""
+    q, k, v = _qkv(3, 2, 8, 37, 2, 128)
+    mask = np.ones((2, 37), np.int32)
+    mask[0] = 0
+    port, pallas, dense = _both(q, k, v, mask)
+    assert np.isfinite(port).all()
+    np.testing.assert_allclose(port, pallas, **TOL)
+    np.testing.assert_allclose(port, dense, **TOL)
+
+
+def test_dense_attention_matches_jax_with_probs():
+    """The port's dense path (text self-attention, and the bridges when
+    attention maps are requested) against JAX's, probabilities included."""
+    q, k, v = _qkv(5, 2, 38, 38, 12, 64)
+    mask = np.ones((2, 38), np.int32)
+    mask[1, 30:] = 0
+    ctx, probs = multi_head_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        mask_to_bias(torch.from_numpy(mask)))
+    jctx, jprobs = jax_mha(*(jnp.asarray(a) for a in (q, k, v)),
+                           jax_mask_to_bias(jnp.asarray(mask)))
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(jctx), **TOL)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), **TOL)
+
+
+def test_bf16_mask_bias_is_made_in_the_compute_dtype():
+    """(1 - mask) * -10000 in bf16 is -9984 in both packages."""
+    mask = np.array([[1, 0, 1]], np.int32)
+    port = mask_to_bias(torch.from_numpy(mask), torch.bfloat16)
+    jax_b = jax_mask_to_bias(jnp.asarray(mask), jnp.bfloat16)
+    assert port.dtype == torch.bfloat16
+    np.testing.assert_array_equal(port.float().numpy(),
+                                  np.asarray(jax_b, np.float32))
+    assert port.float()[0, 0, 0, 1].item() == -9984.0
+
+
+def test_wrapper_on_cpu_uses_plain_and_counts_no_launch():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 5, 7, 2, 16))
+    bias = torch.zeros(1, 1, 1, 7)
+    before = coattention.flash_cross_attention.launches
+    out = coattention.flash_cross_attention(q, k, v, bias)
+    assert coattention.flash_cross_attention.launches == before
+    torch.testing.assert_close(
+        out, coattention.flash_cross_attention_plain(q, k, v, bias),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["bias_shape", "kv_mismatch", "devices"])
+def test_wrapper_rejects_bad_inputs(bad):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(7, 1, 5, 7, 2, 16))
+    bias = torch.zeros(1, 1, 1, 7)
+    if bad == "bias_shape":
+        bias = torch.zeros(1, 7)
+    elif bad == "kv_mismatch":
+        v = v[:, :6]
+    else:
+        q = q.to("meta")
+    with pytest.raises(ValueError):
+        coattention.flash_cross_attention(q, k, v, bias)

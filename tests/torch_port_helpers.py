@@ -1,0 +1,168 @@
+"""Shared plumbing of the tests that hold the PyTorch port
+(``vilbert_multitask_tpu_torch``) against the JAX package.
+
+Inputs and weights are made with numpy from a seed and handed to both
+packages; the JAX parameter tree crosses over through the port's own
+``checkpoint.convert.from_flax_params``. Only tests import both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from vilbert_multitask_tpu.config import ViLBertConfig
+from vilbert_multitask_tpu.models.vilbert import (
+    ViLBertForVLTasks as JaxViLBert,
+)
+from vilbert_multitask_tpu_torch import config as port_config
+from vilbert_multitask_tpu_torch.checkpoint.convert import from_flax_params
+from vilbert_multitask_tpu_torch.models.vilbert import (
+    ViLBertForVLTasks as PortViLBert,
+)
+
+# Tier-1 runs the suite in several pytest-xdist workers on a few cores.
+torch.set_num_threads(2)
+
+OUTPUT_FIELDS = ("vil_prediction", "vil_prediction_gqa", "vil_logit",
+                 "vil_binary_prediction", "vil_tri_prediction",
+                 "vision_prediction", "vision_logit", "linguisic_prediction",
+                 "linguisic_logit")
+INPUT_ORDER = ("input_ids", "features", "spatials", "segment_ids",
+               "input_mask", "image_mask")
+
+
+def to_port_config(cfg: ViLBertConfig, **overrides):
+    """The same configuration as the port's own dataclass (same fields)."""
+    return dataclasses.replace(
+        port_config.ViLBertConfig(**dataclasses.asdict(cfg)), **overrides)
+
+
+def model_inputs(cfg: ViLBertConfig, *, batch: int = 2, n_text: int = 9,
+                 n_regions: int = 7, seed: int = 1) -> dict:
+    """Seeded numpy inputs with masked text and region tails."""
+    rng = np.random.default_rng(seed)
+    input_mask = np.ones((batch, n_text), np.int32)
+    input_mask[:, n_text - 2:] = 0
+    image_mask = np.ones((batch, n_regions), np.int32)
+    image_mask[:, n_regions - 3:] = 0
+    return dict(
+        input_ids=rng.integers(0, cfg.vocab_size, (batch, n_text)).astype(
+            np.int32),
+        features=rng.normal(size=(batch, n_regions, cfg.v_feature_size)
+                            ).astype(np.float32),
+        spatials=rng.random((batch, n_regions, 5)).astype(np.float32),
+        segment_ids=np.zeros((batch, n_text), np.int32),
+        input_mask=input_mask,
+        image_mask=image_mask,
+        task_ids=rng.integers(1, 17, (batch, 1)).astype(np.int32),
+    )
+
+
+def seeded_params(cfg: ViLBertConfig, seed: int = 0,
+                  scale: float = 0.1) -> dict:
+    """The JAX model's init tree (f32 numpy) with seeded noise on every
+    leaf, so zero-initialized biases and unit LayerNorm scales are
+    exercised too."""
+    inp = model_inputs(cfg, seed=seed)
+    model = JaxViLBert(cfg, dtype=jnp.float32)
+    init = jax.jit(lambda key, args, task_ids: model.init(
+        key, *args, None, task_ids, deterministic=True)["params"])
+    params = init(jax.random.PRNGKey(seed),
+                  tuple(jnp.asarray(inp[k]) for k in INPUT_ORDER),
+                  jnp.asarray(inp["task_ids"]))
+    rng = np.random.default_rng(seed + 100)
+    return jax.tree_util.tree_map(
+        lambda x: (np.asarray(x, np.float32)
+                   + scale * rng.normal(size=x.shape).astype(np.float32)),
+        params)
+
+
+def jax_forward(cfg: ViLBertConfig, params: dict, inp: dict, *,
+                dtype=np.float32, pallas: bool = False,
+                collect: bool = False) -> dict:
+    """JAX ``ViLBertForVLTasks`` forward (all heads) → numpy dict. The
+    Pallas kernel, when on, runs in interpret mode on the CPU."""
+    cfg = dataclasses.replace(cfg, use_pallas_coattention=pallas,
+                              use_pallas_self_attention=pallas)
+    f64 = np.dtype(dtype) == np.float64
+    with jax.enable_x64(f64):
+        jdt = jnp.float64 if f64 else jnp.float32
+        tree = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jdt), params)
+        model = JaxViLBert(cfg, dtype=jdt)
+        apply = jax.jit(lambda tree, args, task_ids: model.apply(
+            {"params": tree}, *args, None, task_ids, deterministic=True,
+            output_all_attention_masks=collect))
+        out = apply(tree,
+                    tuple(jnp.asarray(inp[k], jdt if k in ("features",
+                                                           "spatials")
+                                      else jnp.int32) for k in INPUT_ORDER),
+                    jnp.asarray(inp["task_ids"], jnp.int32))
+        return _as_numpy(out)
+
+
+def port_model(cfg: ViLBertConfig, params: dict, *, dtype=torch.float32,
+               pallas: bool = True) -> PortViLBert:
+    """The port's model on the CPU with the JAX tree loaded (strict)."""
+    pcfg = to_port_config(cfg, use_pallas_coattention=pallas,
+                          use_pallas_self_attention=pallas)
+    model = PortViLBert(pcfg)
+    sd = {k: torch.from_numpy(np.array(v))
+          for k, v in from_flax_params(params, pcfg).items()}
+    model.load_state_dict(sd, strict=True)
+    return model.to(dtype).eval()
+
+
+def port_inputs(inp: dict, dtype=torch.float32) -> tuple:
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in inp.items()}
+    return (t["input_ids"].long(), t["features"].to(dtype),
+            t["spatials"].to(dtype), t["segment_ids"].long(),
+            t["input_mask"].long(), t["image_mask"].long(), None,
+            t["task_ids"].long())
+
+
+def port_forward(model: PortViLBert, inp: dict, *, dtype=torch.float32,
+                 collect: bool = False) -> dict:
+    with torch.inference_mode():
+        out = model(*port_inputs(inp, dtype),
+                    output_all_attention_masks=collect)
+    return _as_numpy(out)
+
+
+def _as_numpy(out) -> dict:
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x.float().numpy() if x.dtype == torch.bfloat16 \
+                else x.numpy()
+        return np.asarray(x)
+
+    res = {f: conv(getattr(out, f)) for f in OUTPUT_FIELDS}
+    res["attn_data_list"] = [tuple(conv(p) for p in pair)
+                             for pair in out.attn_data_list]
+    return res
+
+
+def assert_outputs_close(got: dict, want: dict, *, atol: float,
+                         rtol: float) -> None:
+    """All ten outputs agree: same presence, shapes and values."""
+    for f in OUTPUT_FIELDS:
+        g, w = got[f], want[f]
+        assert (g is None) == (w is None), f
+        if w is not None:
+            assert g.shape == w.shape, (f, g.shape, w.shape)
+            np.testing.assert_allclose(g, w, atol=atol, rtol=rtol,
+                                       err_msg=f)
+    assert len(got["attn_data_list"]) == len(want["attn_data_list"])
+    for i, (gp, wp) in enumerate(zip(got["attn_data_list"],
+                                     want["attn_data_list"])):
+        for g, w in zip(gp, wp):
+            assert (g is None) == (w is None)
+            if w is not None:
+                np.testing.assert_allclose(g, w, atol=atol, rtol=rtol,
+                                           err_msg=f"attn_data_list[{i}]")

@@ -1,0 +1,118 @@
+"""Where one served request's time goes on the card.
+
+    python3 -m vilbert_multitask_tpu_torch.engine.profile_run [--reps N]
+
+Builds the engine at the full serving config (``ViLBertConfig()`` +
+``EngineConfig()``: bf16 compute, fused heads, flash kernel on) with seeded
+random weights on ``cuda``, prepares one VQA request (bucket 1, 100 seeded
+regions), warms ``run()``, then measures:
+
+- ``wall_ms``: host clock around ``run()`` (which ends in the blocking fetch
+  of the decode bundle), median of ``reps`` runs without the profiler;
+- under ``torch.profiler`` (CPU + CUDA activities) over ``reps`` runs: the
+  kernels each run launches, the device busy time per run (the union of the
+  kernels' device intervals), and the kernels that take the most device time;
+- ``idle_share = 1 - busy / wall``: how far the host holds the card back.
+
+Prints one JSON line and writes it to ``chiprun_out/profile_run.json``.
+Needs a CUDA device; raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import statistics
+import time
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profile_run(reps: int = 20, seed: int = 0) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vilbert_multitask_tpu_torch.config import FrameworkConfig
+    from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
+    from vilbert_multitask_tpu_torch.features.pipeline import (
+        synthetic_regions,
+    )
+
+    cfg = FrameworkConfig()
+    eng = InferenceEngine(cfg, seed=seed, device="cuda")
+    region = synthetic_regions(cfg.model.v_feature_size, n_boxes=100,
+                               seed=seed)
+    req = eng.prepare(1, "what is the man holding", [region])
+    for _ in range(5):
+        eng.run(req)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        eng.run(req)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            eng.run(req)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+    busy_ms = _union_us(intervals) / 1e3 / reps if kernels else None
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    flash = [v for k, v in by_name.items() if "flash_attn" in k]
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "config": "ViLBertConfig() + EngineConfig(), bucket 1 (VQA)",
+        "reps": reps,
+        "wall_ms_p50": wall_ms,
+        "wall_ms_min": min(walls),
+        "device_busy_ms_per_run": busy_ms,
+        "idle_share": (None if busy_ms is None
+                       else max(0.0, 1.0 - busy_ms / wall_ms)),
+        "kernels_per_run": len(kernels) / reps,
+        "flash_attn": ({"launches_per_run": sum(c for c, _ in flash) / reps,
+                        "device_ms_per_run":
+                            sum(t for _, t in flash) / 1e3 / reps}
+                       if flash else None),
+        "top_kernels": [{"name": k[:120], "launches_per_run": c / reps,
+                         "device_ms_per_run": t / 1e3 / reps}
+                        for k, (c, t) in top],
+        "stage_ms": {k[:-2] + "_ms": v * 1e3
+                     for k, v in eng.stage_times.items()},
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=os.path.join("chiprun_out",
+                                                   "profile_run.json"))
+    args = ap.parse_args()
+    report = profile_run(args.reps, args.seed)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(report), flush=True)
+
+
+if __name__ == "__main__":
+    main()

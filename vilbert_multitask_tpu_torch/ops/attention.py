@@ -1,0 +1,135 @@
+"""Attention primitives shared by both streams and the co-attention bridge.
+
+Counterpart of ``vilbert_multitask_tpu/ops/attention.py``, with the same
+numerics and the same kernel gates:
+
+- the additive mask bias is made in the compute dtype (``(1 - mask) *
+  -10000``, so -9984 in bf16), as the JAX package makes it;
+- the dense path's softmax runs at ``promote(dtype, float32)``;
+- self-attention takes the flash kernel when ``use_pallas``, there is no
+  dropout and ``head_dim % 128 == 0``; a bridge direction takes it when
+  ``use_pallas``, no probabilities are needed and there is no dropout.
+
+The module tree keeps the upstream torch key layout (``attention.self.
+{query,key,value}``), so the reference's checkpoint loads unchanged. The
+JAX package's ``CrossAttention`` module owns its projections; here the
+upstream layout puts all six bridge projections on one ``biattention``
+module (models/layers.py), so the bridge direction is the function
+:func:`cross_attention` over projections it is handed.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
+
+
+def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(B, N) {0,1} mask → (B, 1, 1, N) additive bias in ``dtype``.
+
+    The BERT-family -10000 penalty rather than -inf, so bf16 softmax stays
+    finite. The product is taken in ``dtype``, as in the JAX package.
+    """
+    bias = (1.0 - mask.to(dtype)) * -10000.0
+    return bias[:, None, None, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_sqrt(depth: int, dtype: torch.dtype) -> float:
+    """``1 / sqrt(depth)`` rounded as the JAX package computes it, in
+    ``dtype`` (a host scalar: no device traffic per call)."""
+    return torch.tensor(depth, dtype=dtype).sqrt().reciprocal().item()
+
+
+def multi_head_attention(
+    q: torch.Tensor,  # (B, Nq, H, D)
+    k: torch.Tensor,  # (B, Nk, H, D)
+    v: torch.Tensor,  # (B, Nk, H, D)
+    bias: Optional[torch.Tensor],  # broadcastable to (B, H, Nq, Nk)
+    *,
+    dropout_rate: float = 0.0,
+    training: bool = False,
+    dtype=torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense attention. Returns (context (B, Nq, H, D), probs (B, H, Nq, Nk))."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * _inv_sqrt(q.shape[-1],
+                                                             dtype)
+    if bias is not None:
+        scores = scores + bias.to(dtype)
+    softmax_dtype = torch.promote_types(scores.dtype, torch.float32)
+    probs = torch.softmax(scores.to(softmax_dtype), dim=-1).to(dtype)
+    dropped = (F.dropout(probs, dropout_rate, training=True)
+               if training and dropout_rate > 0.0 else probs)
+    context = torch.einsum("bhqk,bkhd->bqhd", dropped, v)
+    return context, probs
+
+
+def cross_attention(
+    x: torch.Tensor,  # (B, Nq, Dx) queries' stream
+    y: torch.Tensor,  # (B, Nk, Dy) keys' and values' stream
+    y_mask_bias: torch.Tensor,  # (B, 1, 1, Nk)
+    query: nn.Linear,
+    key: nn.Linear,
+    value: nn.Linear,
+    *,
+    num_heads: int,
+    use_pallas: bool,
+    need_probs: bool,
+    dropout_rate: float = 0.0,
+    training: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One co-attention direction: queries from ``x``, keys/values from
+    ``y``. Returns (context (B, Nq, bi_hidden), probs or None)."""
+    q, k, v = query(x), key(y), value(y)
+    B, Nq, hidden = q.shape
+    Nk = k.shape[1]
+    head_dim = hidden // num_heads
+    q = q.view(B, Nq, num_heads, head_dim)
+    k = k.view(B, Nk, num_heads, head_dim)
+    v = v.view(B, Nk, num_heads, head_dim)
+    use_dropout = training and dropout_rate > 0.0
+    if use_pallas and not need_probs and not use_dropout:
+        ctx = flash_cross_attention(q, k, v, y_mask_bias)
+        return ctx.reshape(B, Nq, hidden), None
+    ctx, probs = multi_head_attention(q, k, v, y_mask_bias,
+                                      dropout_rate=dropout_rate,
+                                      training=training, dtype=q.dtype)
+    return ctx.reshape(B, Nq, hidden), probs
+
+
+class FusedSelfAttention(nn.Module):
+    """BERT self-attention (upstream keys ``query``/``key``/``value``).
+
+    The JAX package fuses the three projections into one ``qkv`` kernel;
+    here they stay three ``Linear`` layers, so each projection's output is
+    contiguous and its ``(B, N, H, D)`` view goes to the kernel as it is.
+    """
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 dropout_rate: float = 0.1, use_pallas: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.use_pallas = use_pallas
+        self.query = nn.Linear(hidden_size, hidden_size)
+        self.key = nn.Linear(hidden_size, hidden_size)
+        self.value = nn.Linear(hidden_size, hidden_size)
+
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        head_dim = x.shape[-1] // self.num_heads
+        # Self-attention probs are never surfaced (the reference's
+        # attn_data_list carries only the bridge maps), so dropout and the
+        # head width alone gate the kernel.
+        return cross_attention(
+            x, x, mask_bias, self.query, self.key, self.value,
+            num_heads=self.num_heads,
+            use_pallas=self.use_pallas and head_dim % 128 == 0,
+            need_probs=False, dropout_rate=self.dropout_rate,
+            training=self.training)
