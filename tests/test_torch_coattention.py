@@ -1,15 +1,18 @@
 """The port's flash attention (plain version, as its wrapper runs it on the
 CPU) against the JAX package's Pallas kernel and its dense attention.
 
-The five cases of tests/test_pallas_coattention.py, on the same numpy
-inputs fed to both packages, at the JAX package's own kernel tolerance
-(atol/rtol 2e-5 in f32). The JAX kernel runs in interpret mode on the CPU.
-The CUDA kernel itself is held against this plain version on the card by
-chip_smoke.py.
+The five cases of tests/test_pallas_coattention.py, and the edges of the
+plain version's 64-key tiles (the bf16 kernel's), on the same numpy inputs
+fed to both packages, at the JAX package's own kernel tolerance (atol/rtol
+2e-5 in f32; 1e-9 in f64 against JAX's dense path). The JAX kernel runs in
+interpret mode on the CPU. The CUDA kernel itself is held against this plain
+version on the card by chip_smoke.py; what the wrapper checks before a
+launch is tested here.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,6 +65,16 @@ CASES = {
     # The visual self-attention geometry: 101 x 101 regions, 8 x 128.
     "visual_2x101x101x8x128": dict(seed=11, shape=(2, 101, 101, 8, 128),
                                    keep=0.8),
+    # Nk on either side of one and two 64-key tiles.
+    **{f"tile_edge_1x20x{nk}x2x64": dict(seed=20 + nk, shape=(1, 20, nk, 2, 64),
+                                          keep=0.9)
+       for nk in (63, 64, 65, 128, 129)},
+    # The serving geometry with 90% of the keys masked.
+    "masked90_2x38x101x4x128": dict(seed=12, shape=(2, 38, 101, 4, 128),
+                                    keep=0.1),
+    # q x 8: peaky rows, where the running max moves between tiles.
+    "peaky_q8_1x38x129x4x64": dict(seed=13, shape=(1, 38, 129, 4, 64),
+                                   keep=0.9, q_scale=8.0),
 }
 
 
@@ -70,6 +83,7 @@ def test_plain_matches_jax_kernel_and_dense(case):
     c = CASES[case]
     B, Nq, Nk, H, D = c["shape"]
     q, k, v = _qkv(c["seed"], B, Nq, Nk, H, D)
+    q = q * np.float32(c.get("q_scale", 1.0))
     rng = np.random.default_rng(c["seed"] + 1)
     mask = (rng.random((B, Nk)) < c["keep"]).astype(np.int32)
     mask[:, 0] = 1
@@ -77,6 +91,27 @@ def test_plain_matches_jax_kernel_and_dense(case):
     assert port.shape == (B, Nq, H, D) and port.dtype == np.float32
     np.testing.assert_allclose(port, pallas, **TOL)
     np.testing.assert_allclose(port, dense, **TOL)
+
+
+def test_plain_f64_matches_jax_dense():
+    """f64 on both sides over three 64-key tiles with a ragged last one: the
+    plain version keeps f64 state and matches JAX's dense path at 1e-9."""
+    B, Nq, Nk, H, D = 2, 21, 150, 2, 32
+    rng = np.random.default_rng(14)
+    q, k, v = (rng.normal(size=(B, n, H, D)) for n in (Nq, Nk, Nk))
+    mask = (rng.random((B, Nk)) < 0.7).astype(np.int32)
+    mask[:, 0] = 1
+    port = coattention.flash_cross_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        mask_to_bias(torch.from_numpy(mask), torch.float64))
+    assert port.dtype == torch.float64
+    with jax.enable_x64(True):
+        jq, jk, jv = (jnp.asarray(a, jnp.float64) for a in (q, k, v))
+        dense = np.asarray(jax_mha(
+            jq, jk, jv, jax_mask_to_bias(jnp.asarray(mask), jnp.float64),
+            dtype=jnp.float64)[0])
+    assert dense.dtype == np.float64
+    np.testing.assert_allclose(port.numpy(), dense, atol=1e-9, rtol=1e-9)
 
 
 def test_masked_keys_do_not_leak():
@@ -158,3 +193,44 @@ def test_wrapper_rejects_bad_inputs(bad):
         q = q.to("meta")
     with pytest.raises(ValueError):
         coattention.flash_cross_attention(q, k, v, bias)
+
+
+def _bf16_qkv_out(D=16, *, pad=0, offset=0):
+    """bf16 q, k, v, out of shape (1, 5, 2, D), q a view into a wider
+    buffer: ``pad`` extra elements per head row, ``offset`` skipped first."""
+    buf = torch.zeros(1, 5, 2, D + pad + offset, dtype=torch.bfloat16)
+    q = buf[..., offset:offset + D]
+    k, v, out = (torch.zeros(1, 7 if i < 2 else 5, 2, D, dtype=torch.bfloat16)
+                 for i in range(3))
+    return q, k, v, out
+
+
+@pytest.mark.parametrize("bad", ["width_12", "width_136", "offset_2_bytes",
+                                 "head_stride_40_bytes", "f32_width_136"])
+def test_launch_check_rejects_what_the_kernel_cannot_read(bad):
+    """The checks the CUDA branch runs before any launch: bf16 head_dim a
+    multiple of 8 up to 128, 16-byte bases and (B, N, H) strides."""
+    q, k, v, out = {
+        "width_12": lambda: _bf16_qkv_out(12),
+        "width_136": lambda: _bf16_qkv_out(136),
+        "offset_2_bytes": lambda: _bf16_qkv_out(16, pad=7, offset=1),
+        "head_stride_40_bytes": lambda: _bf16_qkv_out(16, pad=4),
+        "f32_width_136": lambda: tuple(
+            t.float() for t in _bf16_qkv_out(136)),
+    }[bad]()
+    with pytest.raises(ValueError):
+        coattention._check_launchable(q, k, v, out)
+
+
+@pytest.mark.parametrize("case", ["bf16_d16", "bf16_d24_strided_view",
+                                  "f32_d12_offset"])
+def test_launch_check_accepts_what_the_kernel_reads(case):
+    """bf16 at any D % 8 == 0 on 16-byte bounds, views included; f32 copies
+    scalars, so any width up to 128 and any alignment."""
+    q, k, v, out = {
+        "bf16_d16": lambda: _bf16_qkv_out(16),
+        "bf16_d24_strided_view": lambda: _bf16_qkv_out(24, pad=8, offset=8),
+        "f32_d12_offset": lambda: tuple(
+            t.float() for t in _bf16_qkv_out(12, pad=1, offset=1)),
+    }[case]()
+    coattention._check_launchable(q, k, v, out)

@@ -5,7 +5,8 @@ plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``) under ``_build/`` next to this file, a directory that
 ``.gitignore`` lists. The library's file name carries a hash of the source
 and the flags, so an edited source rebuilds and a stale library is never
-loaded. No source includes PyTorch's headers, so a build takes seconds.
+loaded; a build with other flags (``flags=``) gets a library of its own.
+No source includes PyTorch's headers, so a build takes seconds.
 
 Nothing here runs at import time: the CPU-only test runs import every module
 and never reach :func:`load`.
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -48,34 +49,35 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> str:
+def library_path(name: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
     """Where ``csrc/<name>.cu`` builds to, keyed by a hash of source+flags."""
     with open(os.path.join(SOURCE_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
+def _start(name: str, flags: Sequence[str]):
     """Start nvcc for one source unless its library exists. Returns
     (final path, temp path, Popen) or (final path, None, None)."""
-    out = library_path(name)
+    out = library_path(name, flags)
     if os.path.exists(out):
         return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *flags, "-o", tmp,
            os.path.join(SOURCE_DIR, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
 
 
-def build(names: Sequence[str]) -> Dict[str, str]:
+def build(names: Sequence[str],
+          flags: Sequence[str] = NVCC_FLAGS) -> Dict[str, str]:
     """Build the named sources, all nvcc processes started together, and
     return ``{name: compiler output}`` (ptxas register and shared-memory
     lines; empty for a library that was already built). Raises with nvcc's
     output when a build fails."""
-    started = {n: _start(n) for n in names}
+    started = {n: _start(n, tuple(flags)) for n in names}
     logs: Dict[str, str] = {}
     errors = []
     for name, (out, tmp, proc) in started.items():
@@ -98,13 +100,14 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, flags: Sequence[str] = NVCC_FLAGS) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
+    key = (name, tuple(flags))
+    lib = _LIBS.get(key)
     if lib is not None:
         return lib
     with _LOCK:
-        if name not in _LIBS:
-            build([name])
-            _LIBS[name] = ctypes.CDLL(library_path(name))
-        return _LIBS[name]
+        if key not in _LIBS:
+            build([name], flags)
+            _LIBS[key] = ctypes.CDLL(library_path(name, flags))
+        return _LIBS[key]

@@ -9,15 +9,19 @@ output ``acc / max(l, 1e-30)`` in q's dtype.
 
 - :func:`flash_cross_attention` is the wrapper the model calls. On a CUDA
   tensor it launches ``csrc/flash_attn.cu`` (built by :mod:`.._build` at
-  first use) or raises; there is no fallback on the card. On a CPU tensor it
-  calls the plain version.
+  first use): bf16 goes to the tensor-core kernel, f32 to the CUDA-core
+  one. Anything else raises; there is no fallback on the card. On a CPU
+  tensor it calls the plain version.
 - :func:`flash_cross_attention_plain` is the same recurrence in torch ops,
-  over the same 32-key tiles: the CPU path, and what the kernel is held
-  against on the card.
+  over the bf16 kernel's 64-key tiles: the CPU path, and what the kernel is
+  held against on the card. It does not round P to bf16 as the bf16 kernel
+  does before P·V.
 
 Inputs use the model's ``(B, N, H, D)`` layout; the kernel reads them in
 place through their strides (the head_dim axis must be contiguous, which the
-``Linear`` outputs viewed as ``(B, N, H, D)`` are). The bias is the
+``Linear`` outputs viewed as ``(B, N, H, D)`` are). The bf16 kernel copies
+16 bytes at a time, so it also needs ``D % 8 == 0`` and 16-byte aligned
+bases and strides (:func:`_check_launchable`). The bias is the
 ``(B, 1, 1, Nk)`` additive row from :func:`.attention.mask_to_bias`.
 """
 
@@ -30,10 +34,11 @@ import torch
 
 from vilbert_multitask_tpu_torch import _build
 
-# Keys per tile, shared by the kernel (BK in csrc/flash_attn.cu) and the
-# plain version, so both run the same recurrence over the same tiles.
-BLOCK_K = 32
+# Keys per tile, shared by the bf16 kernel (BLOCK_K in csrc/flash_attn.cu)
+# and the plain version, so both run the same recurrence over the same tiles.
+BLOCK_K = 64
 MAX_HEAD_DIM = 128
+_COPY_BYTES = 16  # the bf16 kernel's cp.async piece
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -92,6 +97,56 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
+def _check_launchable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the kernel for q's dtype can read q, k, v
+    and write ``out`` as they lie in memory. Needs no card."""
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    if min(B, Nq, Nk, H, D) < 1:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, Nk {Nk}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and D % 8:
+        raise ValueError(f"the bf16 kernel takes head_dim % 8 == 0, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        stride = t.stride()
+        if stride[3] != 1:
+            raise ValueError(f"the head_dim axis of {name} must be contiguous")
+        if not bf16:
+            continue
+        # 16-byte copies: the base and every (B, N, H) stride that is
+        # stepped (the axis is longer than 1) on 16-byte bounds.
+        shape, step = t.shape, _COPY_BYTES // t.element_size()
+        if (t.data_ptr() % _COPY_BYTES
+                or (shape[0] > 1 and stride[0] % step)
+                or (shape[1] > 1 and stride[1] % step)
+                or (shape[2] > 1 and stride[2] % step)):
+            raise ValueError(
+                f"the bf16 kernel copies {_COPY_BYTES} bytes at a time: {name}"
+                f" must start and stride (B, N, H) on {_COPY_BYTES}-byte "
+                f"bounds, got address {t.data_ptr()} and strides "
+                f"{stride[:3]} in elements of {t.element_size()} bytes")
+
+
+def _launch(q, k, v, bias, *, lib: ctypes.CDLL = None) -> torch.Tensor:
+    """Launch the kernel for q's dtype (from ``lib``, by default the built
+    ``csrc/flash_attn.cu``) on CUDA tensors already checked by
+    :func:`flash_cross_attention`; counts nothing."""
+    B, Nq, H, D = q.shape
+    out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
+    _check_launchable(q, k, v, out)
+    fn = _bind(lib or _build.load("flash_attn"))
+    rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), B, Nq, k.shape[1], H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            bias.stride(0), bias.stride(3), *out.stride()[:3],
+            1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn kernel launch failed: cudaError {rc}")
+    return out
+
+
 def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor) -> torch.Tensor:
     """Blockwise attention; returns the context ``(B, Nq, H, D)`` in q's
@@ -110,26 +165,7 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_cross_attention takes float32 or bfloat16 "
                         "q, k, v and bias of one dtype, got "
                         f"{[str(t.dtype) for t in (q, k, v, bias)]}")
-    B, Nq, H, D = q.shape
-    Nk = k.shape[1]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}")
-    if min(B, Nq, Nk, H, D) < 1:
-        raise ValueError(f"empty attention: q {tuple(q.shape)}, Nk {Nk}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the head_dim axis of q, k, v must be contiguous")
-    out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=q.device)
-    fn = _bind(_build.load("flash_attn"))
-    rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), B, Nq, Nk, H, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            bias.stride(0), bias.stride(3),
-            out.stride(0), out.stride(1), out.stride(2),
-            1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn kernel launch failed: cudaError {rc}")
+    out = _launch(q, k, v, bias)
     flash_cross_attention.launches += 1
     return out
 
