@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests import torch_port_helpers  # noqa: F401  (caps torch threads)
+from tests.torch_port_helpers import assert_same_result
 from vilbert_multitask_tpu.config import (
     TASK_REGISTRY,
     EngineConfig,
@@ -116,29 +116,13 @@ def world(tmp_path_factory):
     return dict(dir=str(d), params=params, sd=sd, jax=jeng, port=peng)
 
 
-def _assert_same_result(got, want, tol, path="result"):
-    """Same structure, strings and ints; floats to ``tol``."""
-    if isinstance(want, dict):
-        assert set(got) == set(want), path
-        for k in want:
-            _assert_same_result(got[k], want[k], tol, f"{path}.{k}")
-    elif isinstance(want, list):
-        assert len(got) == len(want), path
-        for i, (g, w) in enumerate(zip(got, want)):
-            _assert_same_result(g, w, tol, f"{path}[{i}]")
-    elif isinstance(want, float):
-        np.testing.assert_allclose(got, want, err_msg=path, **tol)
-    else:
-        assert got == want, (path, got, want)
-
-
 @pytest.mark.parametrize("task_id", sorted(TASK_REGISTRY))
 def test_every_task_decodes_like_jax(world, task_id):
     paths = _paths(task_id)
     want = world["jax"].predict(task_id, QUESTIONS[task_id], paths)
     got = world["port"].predict(task_id, QUESTIONS[task_id], paths)
     assert got.kind == TASK_REGISTRY[task_id].decode
-    _assert_same_result(got.to_json(), want.to_json(), F32)
+    assert_same_result(got.to_json(), want.to_json(), F32)
 
 
 @pytest.mark.parametrize("task_id", [1, 7, 12, 16])
@@ -196,7 +180,7 @@ def test_attention_maps_match_jax(world):
     for (pt, pv), (jt, jv) in zip(out_p.attn_data_list, out_j.attn_data_list):
         np.testing.assert_allclose(pt.numpy(), np.asarray(jt), **F32)
         np.testing.assert_allclose(pv.numpy(), np.asarray(jv), **F32)
-    _assert_same_result(res_p.to_json(), res_j.to_json(), F32)
+    assert_same_result(res_p.to_json(), res_j.to_json(), F32)
 
 
 def test_per_head_engine_matches_fused(world):
@@ -208,7 +192,7 @@ def test_per_head_engine_matches_fused(world):
     assert per_head.head_slabs is None and world["port"].head_slabs
     for task_id in (1, 15, 12, 13, 7, 4):
         paths = _paths(task_id)
-        _assert_same_result(
+        assert_same_result(
             per_head.predict(task_id, QUESTIONS[task_id], paths).to_json(),
             world["port"].predict(task_id, QUESTIONS[task_id],
                                   paths).to_json(), F32)

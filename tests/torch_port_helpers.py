@@ -166,3 +166,73 @@ def assert_outputs_close(got: dict, want: dict, *, atol: float,
             if w is not None:
                 np.testing.assert_allclose(g, w, atol=atol, rtol=rtol,
                                            err_msg=f"attn_data_list[{i}]")
+
+
+# ----------------------------------------------------------- engine worlds
+def write_feature_files(root, dim: int, names, *, seed: int = 0) -> None:
+    """Seeded reference-format ``.npy`` region files, one per name, with
+    5-10 boxes each (more than ``num_features=8`` clips)."""
+    from vilbert_multitask_tpu.features.pipeline import RegionFeatures
+    from vilbert_multitask_tpu.features.store import save_reference_npy
+
+    rng = np.random.default_rng(seed)
+    for i, name in enumerate(names):
+        n = 10 if i == 0 else 5 + i % 4
+        x1 = rng.uniform(0, 300, n)
+        y1 = rng.uniform(0, 200, n)
+        boxes = np.stack([x1, y1, x1 + rng.uniform(10, 200, n),
+                          y1 + rng.uniform(10, 150, n)], 1)
+        save_reference_npy(f"{root}/{name}.npy", RegionFeatures(
+            features=rng.normal(size=(n, dim)).astype(np.float32),
+            boxes=boxes.astype(np.float32), image_width=640,
+            image_height=480), name)
+
+
+def engine_pair(jax_cfg, feature_root: str, *, seed: int = 0,
+                **port_engine):
+    """A JAX engine (dense attention, noisy seeded weights) and the port's
+    CPU engine on the same converted weights, the same feature files and
+    the same config (the port's through ``FrameworkConfig.from_dict``, its
+    kernel routes on, which take the plain version on the CPU)."""
+    from vilbert_multitask_tpu.engine.runtime import (
+        InferenceEngine as JaxEngine,
+    )
+    from vilbert_multitask_tpu.features.store import FeatureStore as JaxStore
+    from vilbert_multitask_tpu_torch.engine.runtime import (
+        InferenceEngine as PortEngine,
+    )
+    from vilbert_multitask_tpu_torch.features.store import (
+        FeatureStore as PortStore,
+    )
+
+    jeng = JaxEngine(jax_cfg, seed=seed, feature_store=JaxStore(feature_root))
+    noise = np.random.default_rng(seed + 1)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32)
+        + 0.1 * noise.normal(size=x.shape).astype(np.float32),
+        jax.device_get(jeng.params))
+    jeng.load_params(params)
+    pcfg = port_config.FrameworkConfig.from_dict(dataclasses.asdict(jax_cfg))
+    pcfg = dataclasses.replace(pcfg, engine=dataclasses.replace(
+        pcfg.engine, use_pallas_coattention=True,
+        use_pallas_self_attention=True, **port_engine))
+    sd = from_flax_params(params, pcfg.model)
+    peng = PortEngine(pcfg, params=sd, feature_store=PortStore(feature_root),
+                      device="cpu")
+    return jeng, peng, sd
+
+
+def assert_same_result(got, want, tol, path="result"):
+    """Same structure, strings and ints; floats to ``tol``."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            assert_same_result(got[k], want[k], tol, f"{path}.{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_result(g, w, tol, f"{path}[{i}]")
+    elif isinstance(want, float):
+        np.testing.assert_allclose(got, want, err_msg=path, **tol)
+    else:
+        assert got == want, (path, got, want)

@@ -7,7 +7,7 @@ so one config JSON or one ``dataclasses.asdict`` dump feeds both packages:
   plus the overrides applied at reference worker.py:509-522).
 - :class:`TaskSpec` / :data:`TASK_REGISTRY` — the served task types.
 - :class:`EngineConfig`    — the inference-engine fields this package reads.
-- :class:`ServingConfig`   — the serving fields the engine reads.
+- :class:`ServingConfig`   — the web/queue tier (a full copy).
 - :class:`FrameworkConfig` — the root aggregate; :meth:`FrameworkConfig.from_dict`
   takes a JAX-package config dump and ignores the fields this package lacks.
 """
@@ -224,7 +224,10 @@ SNLI_VE_LABELS = ("contradiction (false)", "neutral", "entailment (true)")  # wo
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The inference-engine fields the port reads (a subset of the JAX
-    package's EngineConfig, same names and defaults)."""
+    package's EngineConfig, same names and defaults). Left out: the knobs
+    only JAX reads (``param_dtype`` until int8 is ported, the XLA
+    compilation and AOT caches, ``parallel_warmup``, ``ring_min_regions``
+    and the mesh)."""
 
     max_text_len: int = 37  # wordpiece tokens incl. [CLS]/[SEP] (worker.py:408)
     max_regions: int = 101  # 100 detector boxes + 1 global feature (worker.py:71,433)
@@ -232,6 +235,12 @@ class EngineConfig:
     # Shape buckets for the image axis: NLVR2 needs 2, retrieval 2..10
     # (worker.py:256-284).
     image_buckets: Sequence[int] = (1, 2, 4, 8, 10)
+    # Row buckets used only by run_many's chunking (the queue-backlog
+    # batched path): a packed chunk of single-image requests is not bound
+    # by the 10-image retrieval cap, and the intermediate 16 keeps 11-31
+    # row batches off the 32-row padding cliff. None/() → chunk at
+    # max(image_buckets).
+    throughput_buckets: Sequence[int] | None = (16, 32)
     compute_dtype: str = "bfloat16"
     # Run the nine per-task decode heads as ONE batched program (stacked
     # weight slabs + a per-row gather by task id) instead of nine small
@@ -244,6 +253,13 @@ class EngineConfig:
     # Text/label assets. None → the committed copies in this package's assets/.
     vocab_path: str | None = None
     labels_root: str | None = None
+    # Device input cache (LRU entries): store-backed images are
+    # content-stable, so their encoded region rows stay in the engine's
+    # device row slab after first use instead of being re-uploaded (~0.41
+    # MB per image in bf16). 0 disables. Keys are explicit
+    # (prepare(cache_keys=...), set by prepare_from_store). 64 entries ≈
+    # 26 MB of bf16 features.
+    device_input_cache_entries: int = 64
 
     def bucket_for(self, n_images: int) -> int:
         for b in self.image_buckets:
@@ -251,12 +267,236 @@ class EngineConfig:
                 return b
         raise ValueError(f"no shape bucket holds {n_images} images")
 
+    def all_row_buckets(self) -> list:
+        """Every row count serving can dispatch: the image buckets (run())
+        plus the throughput buckets (run_many), sorted. The one source for
+        warmup coverage (one CUDA graph each) and chunk-fitting."""
+        return sorted({*self.image_buckets,
+                       *(self.throughput_buckets or ())})
+
+    def row_bucket_for(self, n_rows: int) -> int:
+        """Smallest dispatchable row count that fits a run_many chunk
+        (batched rows are independent single-image requests, so the
+        image-axis semantics of bucket_for don't constrain them)."""
+        if n_rows < 1:
+            raise ValueError(f"row count must be >=1, got {n_rows}")
+        for b in self.all_row_buckets():
+            if n_rows <= b:
+                return b
+        raise ValueError(f"no row bucket holds {n_rows} rows")
+
+    def max_batch_rows(self) -> int:
+        """Largest dispatchable row count — run_many's chunk size and the
+        natural drain depth for a backlogged worker."""
+        return max(max(self.image_buckets),
+                   *(self.throughput_buckets or (0,)))
+
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    """The serving field the engine reads (the queue/HTTP tier is not ported)."""
+    """Web/queue tier (replaces Django settings + demo/constants.py +
+    sender/worker pika constants). A copy of the JAX package's
+    ServingConfig: same fields, same defaults."""
 
+    queue_name: str = "vilbert_multitask_queue"  # wire-compatible (sender.py:18)
+    queue_db_path: str = "serve_state/queue.sqlite3"
+    results_db_path: str = "serve_state/results.sqlite3"
+    media_root: str = "media"
+    refer_expr_dir: str = "refer_expressions_task"  # worker.py:600
+    http_host: str = "127.0.0.1"
+    http_port: int = 8400
+    ws_port: int = 8401
+    max_upload_images: int = 10
+    max_delivery_attempts: int = 3  # poison-message bound (fixes worker.py:650-655)
     lowercase_questions: bool = True  # reference lowercases server-side (views.py:27)
+    # Shared secret for the /worker/* endpoints (remote workers, serve/remote.py).
+    # None → open, matching the reference broker's default-credentials posture
+    # (sender.py:12-15); set it when workers cross host boundaries.
+    worker_token: str | None = None
+    # Shared secret for the ADMIN WRITE surface (POST /admin/*). The
+    # reference's Django admin is login-gated (demo/admin.py); here edits
+    # mutate the persistent task catalog, so when set, writes require
+    # ``Authorization: Bearer <token>`` (admin.html prompts for it).
+    # None → open — acceptable only on the loopback default bind.
+    admin_token: str | None = None
+    # --- resilience/ knobs (see ARCHITECTURE.md "Resilience") ---
+    # Time budget minted at POST / and carried in the job body; the worker
+    # and engine terminate expired jobs with a terminal push instead of
+    # dispatching a forward. None disables deadlines; a per-request
+    # "deadline_s" in the submit payload overrides the default.
+    default_deadline_s: float | None = 300.0
+    # Admission control at the HTTP door: shed with 429 + Retry-After when
+    # pending+inflight depth, or the oldest pending job's age, crosses a
+    # threshold (0 disables that signal).
+    admission_max_queue_depth: int = 512
+    admission_max_queue_age_s: float = 120.0
+    admission_retry_after_s: float = 2.0
+    # Shared RetryPolicy shape for the remote-worker transport (full
+    # jitter; the per-process RetryBudget bounds total retry volume).
+    retry_max_attempts: int = 5
+    retry_base_delay_s: float = 0.5
+    retry_max_delay_s: float = 30.0
+    # CircuitBreaker over the remote transport: trip after
+    # breaker_failure_threshold failures within breaker_window_s, probe
+    # again after breaker_reset_timeout_s.
+    breaker_failure_threshold: int = 5
+    breaker_window_s: float = 30.0
+    breaker_reset_timeout_s: float = 10.0
+    # Graceful drain: how long stop() waits for the worker to finish
+    # in-flight jobs before releasing them back to the queue.
+    drain_grace_s: float = 10.0
+    # --- replica pool (serve/pool.py) ---
+    # Engine replicas behind the queue/scheduler seam: separate devices or
+    # mesh shards on hardware, CPU threads in dryrun. 1 keeps the
+    # single-engine data path but still health-gates it through the pool.
+    pool_replicas: int = 1
+    # How long checkout() waits for a ready replica before raising
+    # NoReadyReplica (jobs stay queued; the durable queue absorbs brief
+    # all-replicas-busy or rolling-swap windows).
+    pool_checkout_timeout_s: float = 30.0
+    # Dispatches a single replica may hold concurrently. 1 = strictly
+    # serial per replica (scaling comes from replica count alone).
+    pool_max_inflight_per_replica: int = 1
+    # Per-replica dispatch breaker: stricter than the engine's own funnel
+    # breaker — a replica that keeps failing leaves the rotation
+    # (ready→degraded) after this many failures in the window, and is
+    # probed again (half-open checkout) after the reset timeout.
+    pool_breaker_failure_threshold: int = 3
+    pool_breaker_window_s: float = 30.0
+    pool_breaker_reset_timeout_s: float = 5.0
+    # Rolling checkpoint swap: max seconds to wait for a draining replica's
+    # in-flight dispatches to finish before swapping params anyway.
+    pool_swap_drain_timeout_s: float = 30.0
+    # Total deliveries (claims) a job gets before the queue dead-letters
+    # it as poison — counts every redelivery, including visibility-timeout
+    # and release()-based failover redeliveries that charge no *attempt*.
+    queue_max_deliveries: int = 3
+    # --- continuous-batching scheduler (serve/scheduler.py) ---
+    # When enabled, run_forever drains through the pipelined three-stage
+    # data plane (intake pool -> EDF window scheduler -> completion stage)
+    # instead of the synchronous step_batch loop.
+    sched_enabled: bool = True
+    # Intake pool width: threads claiming jobs and running feature I/O +
+    # prep concurrently with the device forward.
+    sched_intake_threads: int = 4
+    # Max READY (claimed + prepped, undispatched) jobs. Doubles as intake
+    # backpressure AND the admission signal: ready jobs stay 'inflight' in
+    # the durable queue, so they keep counting against the
+    # AdmissionController's pending+inflight depth at the HTTP door.
+    sched_ready_depth: int = 64
+    # Adaptive batching window bounds: the scheduler lingers up to the
+    # current window for co-arriving jobs before firing a partial batch;
+    # the window stretches (x2 up to max) after full buckets and shrinks
+    # (/2 down to min) after partial ones, so an idle system fires nearly
+    # immediately and a backlogged one packs bigger batches.
+    sched_window_min_s: float = 0.002
+    sched_window_max_s: float = 0.05
+    # A ready member whose deadline slack drops below this fires the batch
+    # immediately (EDF front of the queue must not wait out the window).
+    sched_near_deadline_ms: float = 250.0
+    # Bound on completed-but-unpersisted results queued to the completion
+    # stage (persist/push backpressure on the dispatch thread).
+    sched_completion_depth: int = 128
+    # --- obs/ live-health knobs (see ARCHITECTURE.md "SLOs & flight
+    # recorder") ---
+    # Background sampler: snapshot cadence and ring length of the
+    # in-process time-series store (points per series; at a 1 s cadence
+    # 512 points ≈ the last 8.5 minutes).
+    sampler_cadence_s: float = 1.0
+    timeseries_points: int = 512
+    # Multi-window burn-rate evaluation: PAGE/WARN need the burn over the
+    # threshold on BOTH windows (fast = "happening now", slow =
+    # "sustained").
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 600.0
+    slo_warn_burn: float = 1.0
+    slo_page_burn: float = 4.0
+    # SLO targets: e2e latency p-objective, availability, and the
+    # deadline-slack floor ROADMAP item 1 asks evidence for. Budgets are
+    # the allowed bad-event ratio per objective.
+    slo_e2e_target_ms: float = 2000.0
+    slo_e2e_budget: float = 0.05
+    slo_availability_budget: float = 0.02
+    slo_slack_floor_ms: float = 1000.0
+    slo_slack_budget: float = 0.05
+    # Flight recorder: bundle directory (under serve_state by default so
+    # a soak tmpdir sweeps it), rotation/size caps, spans per bundle, and
+    # the per-event re-trigger floor.
+    recorder_dir: str = "serve_state/postmortem"
+    recorder_max_bundles: int = 16
+    recorder_max_bytes: int = 1_000_000
+    recorder_spans: int = 256
+    recorder_min_interval_s: float = 30.0
+    # Fleet observability spine (obs/fleet.py): every process's sampler
+    # tick flushes instrument snapshots, timeseries deltas, spans, and a
+    # heartbeat into a shared WAL sqlite db (next to the queue db when
+    # unset), so any process can answer ?scope=fleet queries for the
+    # whole fleet. A peer whose heartbeat is older than the staleness
+    # bound is treated as dead (SIGKILL leaves no tombstone).
+    fleet_enabled: bool = True
+    fleet_db_path: str | None = None
+    fleet_heartbeat_stale_s: float = 15.0
+    fleet_max_spans: int = 2048
+    fleet_spans_per_flush: int = 256
+    fleet_timeseries_window_s: float = 600.0
+    # Cost attribution + durable trace store (obs/attrib.py,
+    # obs/tracestore.py): per-job stage/device-second accounting and
+    # tail-sampled trace persistence on the fleet spine db. The keep
+    # policy is verdict-based — non-ok terminals always persist, the
+    # top-K slowest completions per task persist, the rest are
+    # p-sampled — and rows older than the retention window are trimmed
+    # on each flush.
+    attrib_enabled: bool = True
+    tracestore_keep_top_k: int = 8
+    tracestore_sample_rate: float = 0.05
+    tracestore_retention_s: float = 3600.0
+    # --- duplicate-traffic tier (serve/resultcache.py; ROADMAP item 3) ---
+    # Durable result cache: a WAL-sqlite table next to the jobs table
+    # (same db file), keyed on (task, feature-content hash, canonical
+    # question, config fingerprint/model generation). Hits skip the
+    # queue and TPU entirely; a rolling swap bumps the model generation
+    # and invalidates.
+    result_cache_enabled: bool = True
+    result_cache_max_rows: int = 4096
+    result_cache_ttl_s: float = 3600.0
+    # In-flight coalescing (singleflight): concurrent identical submits
+    # attach as followers to the one in-flight leader job; every
+    # terminal frame fans out to all followers. The lease bounds how
+    # long a dead leader can strand its key before a fresh submit takes
+    # the claim over and republishes.
+    coalesce_enabled: bool = True
+    coalesce_lease_s: float = 120.0
+    # Tenant-weighted fairness in the EDF scheduler: select_batch grants
+    # per-tenant row budgets by weighted deficit (DRR) ABOVE deadline
+    # ordering, so one hot tenant cannot starve the rest. Weights are
+    # relative shares; tenants absent from the map get the default
+    # weight, and None weights means every tenant is equal.
+    tenant_fairness_enabled: bool = True
+    tenant_weights: Mapping[str, float] | None = None
+    tenant_default_weight: float = 1.0
+    # --- closed-loop autoscaler (serve/autoscale.py; ROADMAP item 1) ---
+    # Target-tracking on queue-wait p95 and SLO burn rate, riding the obs
+    # sampler cadence. Breach above target*band_high for breach_ticks
+    # consecutive ticks scales OUT (pool.add_replica); slack below
+    # target*band_low AND burn below threshold for slack_ticks ticks
+    # scales IN (pool.retire_replica, never below min). Scale-out is
+    # additionally gated on pool health: any open replica breaker or a
+    # poison/dead-letter rate above max_poison_rate_per_s reads as
+    # "unhealthy, don't scale", not "overloaded, add replicas".
+    autoscale_enabled: bool = False
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 4
+    autoscale_target_queue_wait_p95_ms: float = 500.0
+    autoscale_burn_threshold: float = 1.0
+    autoscale_band_high: float = 1.2
+    autoscale_band_low: float = 0.5
+    autoscale_breach_ticks: int = 3
+    autoscale_slack_ticks: int = 12
+    autoscale_cooldown_out_s: float = 30.0
+    autoscale_cooldown_in_s: float = 60.0
+    autoscale_max_poison_rate_per_s: float = 0.5
+    autoscale_window_s: float = 30.0
+    autoscale_decision_history: int = 128
 
 
 def _known(cls, raw: Mapping[str, Any]) -> dict:
@@ -281,3 +521,14 @@ class FrameworkConfig:
             serving=ServingConfig(**_known(ServingConfig,
                                            raw.get("serving", {}))),
         )
+
+
+def config_fingerprint(cfg: FrameworkConfig) -> str:
+    """Short stable hash of the full config tree — the "which exact
+    configuration was this process running" field for ``vmt_build_info``,
+    flight-recorder bundles and the result cache's keys (sorted-key JSON
+    over the dataclass dict)."""
+    import hashlib
+
+    blob = json.dumps(dataclasses.asdict(cfg), sort_keys=True, default=repr)
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]

@@ -1,20 +1,25 @@
 """Where one served request's time goes on the card.
 
-    python3 -m vilbert_multitask_tpu_torch.engine.profile_run [--reps N]
+    python3 -m vilbert_multitask_tpu_torch.engine.profile_run [--reps N] [--graphs]
 
 Builds the engine at the full serving config (``ViLBertConfig()`` +
 ``EngineConfig()``: bf16 compute, fused heads, flash kernel on) with seeded
 random weights on ``cuda``, prepares one VQA request (bucket 1, 100 seeded
-regions), warms ``run()``, then measures:
+regions), warms ``run()`` — eagerly, or with ``--graphs`` after capturing
+bucket 1's CUDA graph (engine.warmup), so every run replays it — then
+measures:
 
 - ``wall_ms``: host clock around ``run()`` (which ends in the blocking fetch
   of the decode bundle), median of ``reps`` runs without the profiler;
 - under ``torch.profiler`` (CPU + CUDA activities) over ``reps`` runs: the
   kernels each run launches, the device busy time per run (the union of the
   kernels' device intervals), and the kernels that take the most device time;
-- ``idle_share = 1 - busy / wall``: how far the host holds the card back.
+- ``idle_share = 1 - busy / wall``: how far the host holds the card back;
+- ``host_top``: the host-side operations with the most self CPU time per
+  run (where the host's share of the wall goes).
 
-Prints one JSON line and writes it to ``chiprun_out/profile_run.json``.
+Prints one JSON line and writes it to ``chiprun_out/profile_run.json``
+(``profile_run_graphs.json`` with ``--graphs``).
 Needs a CUDA device; raises without one.
 """
 
@@ -40,7 +45,8 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_run(reps: int = 20, seed: int = 0) -> dict:
+def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False
+                ) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -55,6 +61,8 @@ def profile_run(reps: int = 20, seed: int = 0) -> dict:
     region = synthetic_regions(cfg.model.v_feature_size, n_boxes=100,
                                seed=seed)
     req = eng.prepare(1, "what is the man holding", [region])
+    if graphs:
+        eng.warmup(buckets=[1])
     for _ in range(5):
         eng.run(req)
     walls = []
@@ -78,9 +86,13 @@ def profile_run(reps: int = 20, seed: int = 0) -> dict:
         by_name[e.name][1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     flash = [v for k, v in by_name.items() if "flash_attn" in k]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
     return {
         "device": torch.cuda.get_device_name(0),
         "config": "ViLBertConfig() + EngineConfig(), bucket 1 (VQA)",
+        "mode": "graph replay" if graphs else "eager",
         "reps": reps,
         "wall_ms_p50": wall_ms,
         "wall_ms_min": min(walls),
@@ -95,6 +107,10 @@ def profile_run(reps: int = 20, seed: int = 0) -> dict:
         "top_kernels": [{"name": k[:120], "launches_per_run": c / reps,
                          "device_ms_per_run": t / 1e3 / reps}
                         for k, (c, t) in top],
+        "host_top": [{"name": e.key[:120], "calls_per_run": e.count / reps,
+                      "self_cpu_ms_per_run":
+                          e.self_cpu_time_total / 1e3 / reps}
+                     for e in host],
         "stage_ms": {k[:-2] + "_ms": v * 1e3
                      for k, v in eng.stage_times.items()},
     }
@@ -104,10 +120,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join("chiprun_out",
-                                                   "profile_run.json"))
+    ap.add_argument("--graphs", action="store_true",
+                    help="capture bucket 1's CUDA graph first (engine.warmup)")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    report = profile_run(args.reps, args.seed)
+    report = profile_run(args.reps, args.seed, graphs=args.graphs)
+    args.out = args.out or os.path.join(
+        "chiprun_out",
+        "profile_run_graphs.json" if args.graphs else "profile_run.json")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -1,48 +1,81 @@
 """Serving runtime: bucketed ViLBERT inference on one CUDA device.
 
 Counterpart of ``vilbert_multitask_tpu/engine/runtime.py`` — the engine
-facade the serve tier calls: :meth:`InferenceEngine.prepare` /
+the serve tier drives: :meth:`InferenceEngine.prepare` /
 :meth:`~InferenceEngine.prepare_from_store` (WordPiece tokenization, region
-encode, bucketing), :meth:`~InferenceEngine.run` (the trunk forward, the
-fused heads and the on-device softmax/top-3 bundle), :meth:`~InferenceEngine.
-decode` (host numpy) and :meth:`~InferenceEngine.predict`.
+encode, bucketing), :meth:`~InferenceEngine.run` (one request: the trunk
+forward, the fused heads and the on-device softmax/top-3 bundle),
+:meth:`~InferenceEngine.run_many` (a backlog packed into row-bucket chunks,
+:meth:`~InferenceEngine.chunk_plan`), :meth:`~InferenceEngine.decode` (host
+numpy), :meth:`~InferenceEngine.predict` and :meth:`~InferenceEngine.warmup`.
 
 - **Device.** The engine runs on ``cuda`` unless the caller passes
   ``device="cpu"`` (the tests do); asking for CUDA where there is none
   raises instead of carrying on on the CPU. On the CPU every kernel wrapper
-  takes its plain PyTorch version.
+  takes its plain PyTorch version and the engine runs eagerly.
 - **Kernels.** The engine forces ``use_pallas_coattention`` and
   ``use_pallas_self_attention`` onto the model config, so on the card every
   eligible attention — the 12 bridge directions and the 6 visual
   self-attentions of a forward at serving width — runs the hand-written
-  flash kernel (ops/coattention.py). A failed build or launch raises; there
-  is no degrade-to-dense path.
-- **Weights.** Linear and Embedding weights are cast to the compute dtype
-  once, at load. Flax's ``Dense(dtype=bf16)`` over f32 parameters casts the
+  flash kernel (ops/coattention.py). A failed build, launch or graph
+  capture raises; there is no degrade-to-dense path (``kernel_fallback``
+  is always False).
+- **The row slab.** Image rows live in a device-resident slab: slot 0 is
+  the permanent pad row, then ``device_input_cache_entries`` LRU cache
+  slots for content-stable store images (keyed by ``cache_keys``), then a
+  scratch rotor of ``max_batch_rows()`` slots for keyless rows. A forward
+  gathers its rows by a slot vector, so a cached image uploads nothing
+  and the pad rows of a bucket never upload.
+- **Stream order instead of functional updates.** The JAX engine updates
+  the slab functionally: a forward dispatched earlier keeps reading its
+  own slab value. Here the slab is written in place, so the engine gets
+  the same safety from stream order: every slab write, forward and bundle
+  copy of an engine is enqueued on one ``torch.cuda.Stream`` it owns, and
+  a dispatch (pack, slab writes, forward, bundle copy) is enqueued under
+  one lock, so a later pack's writes land after every earlier forward on
+  the card. Pinned staging buffers come from PyTorch's pinned-memory
+  cache, which reuses one only after the event behind its last
+  non-blocking copy has completed. Setup (the slab, ``load_params``) also
+  runs on the engine stream and waits on that stream only, never on the
+  whole device: other replicas on the card keep running meanwhile.
+- **CUDA graphs.** :meth:`~InferenceEngine.warmup` captures one graph per
+  row bucket (engine/graphs.py); a dispatch then copies its pack into the
+  graph's static input and replays it, and the few-KB bundle is copied to
+  pinned host memory right behind the replay. ``collect_attention=True``
+  runs eagerly (the JAX package compiles it as a separate program), as
+  does an engine that was not warmed.
+- **Weights.** Linear and Embedding weights are stored in the compute
+  dtype. Flax's ``Dense(dtype=bf16)`` over f32 parameters casts the
   kernel, the bias and the input to bf16 before the product on every call,
   so the one cast at load is bit-equivalent. LayerNorm parameters stay f32,
   as flax's ``LayerNorm(dtype=bf16)`` uses them (statistics in f32).
+  :meth:`~InferenceEngine.load_params` copies into the existing tensors,
+  so captured graphs stay valid across a swap.
 - **Shapes.** Text is always ``max_text_len`` (37, +1 task token) and
   regions ``max_regions`` (101); the image axis pads to one of
-  ``EngineConfig.image_buckets``. NLVR2 pairs and retrieval candidates score
-  in one forward with the question replicated per image row.
+  ``EngineConfig.image_buckets`` (``run``) or a row bucket
+  (``run_many``). NLVR2 pairs and retrieval candidates score in one
+  forward with the question replicated per image row.
 
-Not in this package yet: the device row slab and input cache, ``run_many``,
-warmup/CUDA graphs, meshes, int8 storage, and the serve tier.
+Not in this package yet: meshes, int8 storage, checkpoint restore
+(ROADMAP A5, A6, A11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from vilbert_multitask_tpu_torch import assets
+from vilbert_multitask_tpu_torch import assets, obs
 from vilbert_multitask_tpu_torch.config import (
     TASK_REGISTRY,
     FrameworkConfig,
@@ -50,8 +83,10 @@ from vilbert_multitask_tpu_torch.config import (
     ViLBertConfig,
 )
 from vilbert_multitask_tpu_torch.engine import decode as dec
+from vilbert_multitask_tpu_torch.engine import graphs
 from vilbert_multitask_tpu_torch.engine.labels import LabelMapStore
 from vilbert_multitask_tpu_torch.features.pipeline import (
+    GLOBAL_BOX,
     RegionFeatures,
     batch_images,
     clip_regions,
@@ -64,6 +99,12 @@ from vilbert_multitask_tpu_torch.models.vilbert import (
     ViLBertOutput,
     fused_head_output,
 )
+from vilbert_multitask_tpu_torch.resilience import (
+    CircuitBreaker,
+    DeadlineExceeded,
+    ReplicaKilled,
+)
+from vilbert_multitask_tpu_torch.resilience.faults import fault_point
 from vilbert_multitask_tpu_torch.text.pipeline import (
     EncodedText,
     encode_question,
@@ -136,22 +177,107 @@ class PreparedRequest:
     image_mask: np.ndarray  # (bucket, Nv)
     task_ids: np.ndarray  # (bucket, 1)
     images: List[dec.ImageMeta]
+    # Stable per-image identities for the device input cache (one string
+    # per REAL image row, length n_images), or None for novel uploads /
+    # synthetic defaults. Row-level so any bucket size shares entries.
+    cache_keys: Optional[List[str]] = None
 
 
-def _to_host(tree):
-    """Decode bundle → numpy (the one device→host fetch of a request)."""
+# ------------------------------------------------------------ bundle packing
+def _leaves(tree, path=()):
+    """(path, tensor) leaves of a decode bundle, in insertion order."""
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_to_host(v) for v in tree)
-    return tree.cpu().numpy()
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _flatten_bundle(bundle: dict, rows: int
+                    ) -> Tuple[torch.Tensor, List[tuple]]:
+    """The decode bundle as ONE ``(rows, W)`` f32 tensor (so a dispatch
+    fetches it with one copy) and the spec to undo it. Every leaf has
+    ``rows`` rows' worth of values (the paired NLVR2 head's ``(rows/2, 2)``
+    included); top-k indices are < 2^24 and cross exactly as f32."""
+    parts, spec = [], []
+    for path, x in _leaves(bundle):
+        parts.append(x.reshape(rows, -1).float())
+        spec.append((path, tuple(x.shape), x.dtype.is_floating_point))
+    return torch.cat(parts, dim=1), spec
+
+
+def _unflatten_bundle(flat: np.ndarray, spec: List[tuple]) -> dict:
+    """Inverse of :func:`_flatten_bundle` on the host: numpy leaves of the
+    original shapes (indices back to int64), tuples and dicts rebuilt."""
+    out: dict = {}
+    col = 0
+    for path, shape, is_float in spec:
+        width = int(np.prod(shape)) // flat.shape[0]
+        x = flat[:, col:col + width].reshape(shape)
+        col += width
+        x = x.copy() if is_float else x.astype(np.int64)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return _tuples(out)
+
+
+def _tuples(tree):
+    """Dicts keyed 0..n-1 (from tuple paths) back into tuples."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(isinstance(k, int) for k in tree):
+        return tuple(_tuples(tree[i]) for i in range(len(tree)))
+    return {k: _tuples(v) for k, v in tree.items()}
+
+
+def _align(n: int, to: int = 16) -> int:
+    return (n + to - 1) // to * to
+
+
+@dataclasses.dataclass
+class _Dispatch:
+    """One enqueued forward: its bundle is (being) copied into ``host``;
+    ``event`` completes when the copy has landed (None on the CPU)."""
+
+    host: torch.Tensor  # (rows, W) f32, pinned on the card
+    spec: List[tuple]
+    event: Optional["torch.cuda.Event"]
+    out: Optional[ViLBertOutput]
+
+    def fetch(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        return _unflatten_bundle(self.host.numpy(), self.spec)
+
+
+def _clone_output(out: ViLBertOutput) -> ViLBertOutput:
+    """A graph's static output tensors are overwritten by its next replay:
+    run() hands its caller copies."""
+    return dataclasses.replace(out, **{
+        f.name: getattr(out, f.name).clone()
+        for f in dataclasses.fields(out)
+        if isinstance(getattr(out, f.name), torch.Tensor)})
 
 
 class InferenceEngine:
-    """One engine per process: owns the model, tokenizer and stores."""
+    """One engine per process (or per pool replica): owns the model,
+    tokenizer and stores, the device row slab, the per-bucket graphs and
+    one CUDA stream."""
 
     # Max label-decode fanout (TaskSpec.top_k ≤ 3 for the labels family).
     _TOPK = 3
+    # At most this many chunks in flight (enqueued, bundle not yet fetched)
+    # during a chunked run_many: 2 overlaps packing chunk k+1 on the host
+    # with chunk k on the card; more only grows the memory footprint.
+    _MAX_INFLIGHT_CHUNKS = 2
+    # There is no degrade-to-dense path on this backend: a failed kernel
+    # raises (the serve tier reads the flag).
+    kernel_fallback = False
 
     def __init__(
         self,
@@ -162,10 +288,19 @@ class InferenceEngine:
         feature_store: Optional[FeatureStore] = None,
         label_store: Optional[LabelMapStore] = None,
         seed: int = 0,
+        replica_id: Optional[str] = None,
         device="cuda",
     ):
         self.cfg = cfg or FrameworkConfig()
         ecfg = self.cfg.engine
+        # Replica identity (serve/pool.py): None for standalone engines.
+        # Threads through the breaker name, live_stats and forward spans.
+        self.replica_id = replica_id
+        # Flipped by ReplicaPool.kill() (chaos) or by the pool when a
+        # health probe declares this replica dead: every later dispatch
+        # fails fast with ReplicaKilled.
+        self.killed = False
+        self.mesh = None  # single device (meshes are ROADMAP A11)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # The f32 parity runs compare with the CPU in full f32: TF32
@@ -198,14 +333,56 @@ class InferenceEngine:
                    and TASK_REGISTRY[t].head == "vil_prediction_gqa") else 0
              for t in range(n_tasks)], dtype=torch.long, device=self.device)
         self.stage_times: Dict[str, float] = {}
-        # Built on the meta device (no allocation, no init kernels); the
-        # weights land in load_params.
+        # Boot-phase split for /healthz: upload_s (weights), compile_s
+        # (graph capture at warmup).
+        self.boot_times: Dict[str, float] = {}
+        self._boot_lock = threading.Lock()
+        # Every slab write, forward and bundle copy goes on this stream
+        # (the pool and scheduler call from several threads, and torch's
+        # current stream is per thread); one dispatch is enqueued under
+        # _dispatch_lock. Lock order: _dispatch_lock, then
+        # _input_cache_lock.
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._dispatch_lock = threading.Lock()
+        # Breaker over the forward funnel (_call_forward): sustained device
+        # failures fail jobs fast toward the queue's dead-letter path.
+        breaker_name = ("engine.forward" if replica_id is None
+                        else f"engine.forward.{replica_id}")
+        self._breaker = CircuitBreaker(
+            name=breaker_name, failure_threshold=8, window_s=60.0,
+            reset_timeout_s=15.0)
+        # Device input cache: key → slab slot, LRU over
+        # EngineConfig.device_input_cache_entries.
+        self._input_cache: "OrderedDict[str, int]" = OrderedDict()
+        self._input_cache_lock = threading.Lock()
+        self._input_cache_hits = 0
+        self._input_cache_misses = 0
+        # Row slab state (built lazily): the slab tensors, the free
+        # cache-slot pool and the scratch rotor.
+        self._slab: Optional[Dict[str, torch.Tensor]] = None
+        self._slab_free: List[int] = []
+        self._slab_scratch0 = 0
+        self._slab_scratch_n = 0
+        self._scratch_next = 0
+        self._pack_keys: set = set()
+        # One captured graph per row bucket (warmup), one shared pool.
+        self._graphs: Dict[int, graphs.BucketGraph] = {}
+        self._graph_pool = None
+        # Built on the meta device (no allocation, no init kernels), then
+        # given storage once: Linear/Embedding weights in the compute
+        # dtype, the rest f32. load_params copies into these tensors.
+        t_up = time.perf_counter()
         with torch.device("meta"):
             self.model = ViLBertForVLTasks(self.model_config)
         self.model.to_empty(device=self.device)
+        for mod in self.model.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.to(self.compute_dtype)
         self.model.eval().requires_grad_(False)
         self.head_slabs: Optional[Dict[str, torch.Tensor]] = None
         self.load_params(self.init_params(seed) if params is None else params)
+        self.book_boot_time("upload_s", time.perf_counter() - t_up)
 
     # ------------------------------------------------------------------ init
     def _check_vocab_coherence(self) -> None:
@@ -233,21 +410,40 @@ class InferenceEngine:
     def load_params(self, params: Dict) -> None:
         """Load an upstream-layout state dict (numpy arrays or tensors; the
         reference checkpoint's keys, or ``checkpoint.convert.
-        from_flax_params`` of a JAX tree) with ``strict=True``, cast the
-        Linear/Embedding weights to the compute dtype, and rebuild the fused
-        head slabs."""
+        from_flax_params`` of a JAX tree) with ``strict=True`` into the
+        model's existing tensors (each value is cast to its parameter's
+        dtype on the copy, as a cast at load would), and rebuild the fused
+        head slabs into theirs: the captured graphs read those addresses.
+        The copies go on the engine stream behind any dispatch already
+        enqueued there, and only that stream is waited on: other engines
+        on the card keep running (and may be capturing) meanwhile."""
         sd = {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
               for k, v in params.items()}
-        model = self.model
-        # Load in f32 (LayerNorm parameters stay there), then cast the
-        # Linear/Embedding weights once.
-        model.float()
-        model.load_state_dict(sd, strict=True)
-        for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.to(self.compute_dtype)
-        self.head_slabs = (build_head_slabs(model, self.model_config)
-                           if self.cfg.engine.fused_task_heads else None)
+        with self._dispatch_lock, torch.no_grad(), self._stream_ctx():
+            self.model.load_state_dict(sd, strict=True)
+            slabs = (build_head_slabs(self.model, self.model_config)
+                     if self.cfg.engine.fused_task_heads else None)
+            if self.head_slabs is None or slabs is None:
+                self.head_slabs = slabs
+            else:
+                for name, t in self.head_slabs.items():
+                    t.copy_(slabs[name])
+            if self._stream is not None:
+                self._stream.synchronize()
+
+    def book_boot_time(self, phase: str, seconds: float) -> None:
+        """Accumulate one boot-phase duration (upload_s / compile_s);
+        surfaces in live_stats() → /healthz."""
+        with self._boot_lock:
+            self.boot_times[phase] = (
+                self.boot_times.get(phase, 0.0) + seconds)
+
+    @property
+    def pallas_enabled(self) -> bool:
+        """Whether the hand-written attention kernel is selected (the JAX
+        engine's name for its Pallas kernels)."""
+        return (self.model_config.use_pallas_coattention
+                or self.model_config.use_pallas_self_attention)
 
     # -------------------------------------------------------------- prepare
     @property
@@ -261,25 +457,41 @@ class InferenceEngine:
 
     def prepare_from_store(self, task_id: int, question: str,
                            image_paths: Sequence[str]) -> PreparedRequest:
-        """prepare() with regions read from the attached feature store."""
+        """prepare() with regions AND device-cache identities from the
+        attached feature store in one read (``store.fetch``): the identity
+        is captured at read time, so the cache can never bind a fresh key
+        to stale tensors. Stores without ``fetch`` skip device caching."""
         if self.feature_store is None:
             raise RuntimeError("prepare_from_store() needs a FeatureStore; "
                                "use prepare() with in-memory regions instead")
+        fetch = getattr(self.feature_store, "fetch", None)
         t0 = time.perf_counter()
-        regions = self.feature_store.get_batch(image_paths)
+        with obs.span("engine.features", source="store",
+                      n_images=len(image_paths), task_id=task_id):
+            if fetch is not None:
+                pairs = [fetch(p) for p in image_paths]
+                regions = [r for r, _ in pairs]
+                cache_keys: Optional[List[str]] = [k for _, k in pairs]
+            else:
+                regions = self.feature_store.get_batch(image_paths)
+                cache_keys = None
         fetch_s = time.perf_counter() - t0
-        req = self.prepare(task_id, question, regions, image_paths)
+        req = self.prepare(task_id, question, regions, image_paths,
+                           cache_keys=cache_keys)
         self.stage_times["features_s"] = (
             self.stage_times.get("features_s", 0.0) + fetch_s)
         return req
 
     def prepare(self, task_id: int, question: str,
                 regions: Sequence[RegionFeatures],
-                image_paths: Optional[Sequence[str]] = None
+                image_paths: Optional[Sequence[str]] = None, *,
+                cache_keys: Optional[Sequence[str]] = None
                 ) -> PreparedRequest:
         """Host-side preprocessing: validate, tokenize, encode, bucket
         (reference ``custom_prediction``, worker.py:388-458, with the repeat
-        semantics of worker.py:256-284)."""
+        semantics of worker.py:256-284). ``cache_keys`` (one stable
+        identity per image) opts the request's rows into the device input
+        cache — pass them only for content-stable images."""
         if task_id not in TASK_REGISTRY:
             raise ValueError(f"unknown task_id {task_id}")
         spec = TASK_REGISTRY[task_id]
@@ -289,19 +501,30 @@ class InferenceEngine:
         bucket = n if n == 1 else ecfg.bucket_for(n)
 
         t0 = time.perf_counter()
-        text = encode_question(
-            self.tokenizer, question, ecfg.max_text_len, task_id=task_id,
-            lowercase=self.cfg.serving.lowercase_questions,
-        ).stack(bucket)
+        with obs.span("engine.tokenize", task_id=task_id):
+            text = encode_question(
+                self.tokenizer, question, ecfg.max_text_len,
+                task_id=task_id,
+                lowercase=self.cfg.serving.lowercase_questions,
+            ).stack(bucket)
         self.stage_times["tokenize_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        regions = clip_regions(regions, ecfg.max_regions,
-                               num_features=ecfg.num_features)
-        encoded = [encode_image(r, ecfg.max_regions) for r in regions]
-        feats, spatials, image_mask = batch_images(encoded, pad_to=bucket)
-        feats = torch.from_numpy(feats).to(self.transfer_dtype)
+        with obs.span("engine.features", source="encode", n_images=n,
+                      task_id=task_id):
+            regions = clip_regions(regions, ecfg.max_regions,
+                                   num_features=ecfg.num_features)
+            encoded = [encode_image(r, ecfg.max_regions) for r in regions]
+            feats, spatials, image_mask = batch_images(encoded,
+                                                       pad_to=bucket)
+            feats = torch.from_numpy(feats).to(self.transfer_dtype)
         self.stage_times["features_s"] = time.perf_counter() - t0
         task_ids = np.full((bucket, 1), task_id, np.int32)
+        if cache_keys is not None:
+            if len(cache_keys) != n:
+                raise ValueError(
+                    f"got {len(cache_keys)} cache keys for {n} images")
+            cache_keys = (list(cache_keys)
+                          if ecfg.device_input_cache_entries > 0 else None)
         paths = list(image_paths or [f"image_{i}" for i in range(n)])
         if len(paths) != n:
             raise ValueError(
@@ -309,7 +532,8 @@ class InferenceEngine:
         images = [dec.ImageMeta(p, r.image_width, r.image_height)
                   for p, r in zip(paths, regions)]
         return PreparedRequest(spec, n, bucket, text, feats, spatials,
-                               image_mask, task_ids, images)
+                               image_mask, task_ids, images,
+                               cache_keys=cache_keys)
 
     # ---------------------------------------------------------------- bundles
     @classmethod
@@ -355,57 +579,495 @@ class InferenceEngine:
                if out.vil_binary_prediction is not None else {}),
         }
 
-    # ---------------------------------------------------------------- forward
-    def _device_batch(self, req: PreparedRequest) -> dict:
-        dev = self.device
-        as_long = lambda a: torch.from_numpy(a).to(dev, torch.long)  # noqa: E731
-        return dict(
-            input_ids=as_long(req.text.input_ids),
-            features=req.features.to(dev),
-            spatials=torch.from_numpy(req.spatials).to(dev),
-            segment_ids=as_long(req.text.segment_ids),
-            input_mask=as_long(req.text.input_mask),
-            image_mask=as_long(req.image_mask),
-            task_ids=as_long(req.task_ids),
-        )
+    # ------------------------------------------------------------ row slab
+    def _row_slab(self) -> Dict[str, torch.Tensor]:
+        """The device-resident row slab: one (S, Nv, ...) tensor per image
+        input kind, S = 1 pad slot + cache slots + scratch slots.
+
+        - slot 0 is the permanent padding row (zero features, the global
+          box, mask[0] = 1 — features/pipeline.py batch_images): bucket
+          padding references it by index and uploads nothing, ever;
+        - slots 1..cache_entries hold content-stable store rows (LRU, keyed
+          by the cache_keys from prepare());
+        - the trailing max_batch_rows() scratch slots receive keyless rows,
+          rotor-allocated per pack.
+
+        Built once, on the device, and written in place thereafter (the
+        graphs read it at a fixed address); see the module docstring for
+        why in-place writes are safe.
+        """
+        if self._slab is None:
+            with self._input_cache_lock:
+                if self._slab is None:
+                    ecfg, mcfg = self.cfg.engine, self.cfg.model
+                    cache_slots = ecfg.device_input_cache_entries
+                    scratch = ecfg.max_batch_rows()
+                    n_rows = 1 + cache_slots + scratch
+                    nv, dim = ecfg.max_regions, mcfg.v_feature_size
+                    dev = self.device
+                    with torch.inference_mode(), self._stream_ctx():
+                        spat = torch.zeros((n_rows, nv, 5), device=dev)
+                        spat[0, 0] = torch.from_numpy(GLOBAL_BOX).to(dev)
+                        mask = torch.zeros((n_rows, nv), dtype=torch.int32,
+                                           device=dev)
+                        mask[0, 0] = 1
+                        feats = torch.zeros((n_rows, nv, dim),
+                                            dtype=self.transfer_dtype,
+                                            device=dev)
+                    if self._stream is not None:
+                        self._stream.synchronize()
+                    self._slab_scratch0 = 1 + cache_slots
+                    self._slab_scratch_n = scratch
+                    self._slab_free = list(range(1, 1 + cache_slots))
+                    self._slab = dict(features=feats, spatials=spat,
+                                      image_mask=mask)
+        return self._slab
+
+    def _row_slot_locked(self, key: Optional[str], inserts: dict,
+                         host_row: dict) -> int:
+        """Slab slot for one image row of a pack (caller holds
+        _input_cache_lock): cache hit → existing slot; keyed miss → LRU
+        cache slot + insert; keyless → next scratch slot + insert. Inserts
+        are collected into ``inserts`` (slot → row) and written before the
+        pack's forward.
+
+        One departure from the JAX engine: a keyed miss that would evict a
+        slot this same pack already reads (possible only when a pack holds
+        more distinct keys than the cache has entries) takes a scratch
+        slot and stays uncached. The JAX engine evicts it, and the earlier
+        row of the pack then reads the later row's image."""
+        if key is not None:
+            slot = self._input_cache.get(key)
+            if slot is not None:
+                self._input_cache.move_to_end(key)
+                self._input_cache_hits += 1
+                return slot
+            self._input_cache_misses += 1
+            if self._slab_free:
+                slot = self._slab_free.pop()
+                self._input_cache[key] = slot
+            elif next(iter(self._input_cache)) not in self._pack_keys:
+                # Cache full: reuse the LRU entry's slot. Every forward
+                # that read it was enqueued earlier on the engine stream,
+                # so the overwrite lands after them.
+                _, slot = self._input_cache.popitem(last=False)
+                self._input_cache[key] = slot
+            else:
+                slot = None  # every entry is this pack's: scratch, uncached
+            if slot is not None:
+                inserts[slot] = host_row
+                return slot
+        # No stable identity → scratch rotor. One pack needs at most
+        # max_batch_rows slots (= the scratch region size); a rotor wrap by
+        # a later pack is ordered after this pack's forward.
+        slot = self._slab_scratch0 + (
+            self._scratch_next % self._slab_scratch_n)
+        self._scratch_next += 1
+        inserts[slot] = host_row
+        return slot
+
+    @property
+    def input_cache_stats(self) -> Dict[str, int]:
+        """entries/hits/misses of the device input cache (observability)."""
+        with self._input_cache_lock:
+            return {"entries": len(self._input_cache),
+                    "hits": self._input_cache_hits,
+                    "misses": self._input_cache_misses}
+
+    def live_stats(self) -> Dict[str, float]:
+        """Point-in-time engine internals for the obs sampler: slab/cache
+        occupancy, captured-graph count, dispatch-breaker state. Cheap — a
+        few lock holds, no device work. The keys are the JAX engine's
+        (``engine_compiled_programs`` counts captured graphs)."""
+        cache_slots = self.cfg.engine.device_input_cache_entries
+        with self._input_cache_lock:
+            free = (len(self._slab_free) if self._slab is not None
+                    else cache_slots)
+            stats = {
+                "engine_cache_entries": float(len(self._input_cache)),
+                "engine_slab_slots_used": float(cache_slots - free),
+                "engine_slab_slots_total": float(cache_slots),
+            }
+        stats["engine_compiled_programs"] = float(len(self._graphs))
+        with self._boot_lock:
+            for phase, secs in self.boot_times.items():
+                stats[f"engine_boot_{phase}"] = float(secs)
+        stats["engine_breaker_open"] = float(
+            self._breaker.state != "closed")
+        return stats
+
+    def _request_rows(self, req: PreparedRequest) -> List[tuple]:
+        """A request's real image rows as (host_row, cache_key) pairs."""
+        return [(dict(features=req.features[i], spatials=req.spatials[i],
+                      image_mask=req.image_mask[i]),
+                 req.cache_keys[i] if req.cache_keys is not None else None)
+                for i in range(req.n_images)]
+
+    # ------------------------------------------------------------- dispatch
+    def _pack_host(self, text: dict, slots: Sequence[int]) -> np.ndarray:
+        """The per-dispatch input: ``(bucket, 3·Nt + 2)`` int64 columns
+        [input ids | segment ids | text mask | task id | slab slot]."""
+        return np.concatenate([
+            np.asarray(text["input_ids"], np.int64),
+            np.asarray(text["segment_ids"], np.int64),
+            np.asarray(text["input_mask"], np.int64),
+            np.asarray(text["task_ids"], np.int64).reshape(-1, 1),
+            np.asarray(slots, np.int64)[:, None]], axis=1)
+
+    def _upload(self, inserts: dict, pack: np.ndarray) -> List[torch.Tensor]:
+        """Move a dispatch's pack and its new slab rows to the device (on
+        the engine stream, inside the dispatch lock): ``[pack]`` or
+        ``[pack, slots, features, spatials, image_mask]``. On the card all
+        of it goes through one pinned staging buffer in one copy. The
+        buffer goes back to PyTorch's pinned-memory cache when this returns,
+        which hands it out again only after the event it recorded behind
+        the non-blocking copy has completed: a copy still in flight never
+        reads a refilled buffer."""
+        parts = [torch.from_numpy(pack)]
+        if inserts:
+            rows = list(inserts.values())
+            parts += [
+                torch.tensor(list(inserts), dtype=torch.long),
+                torch.stack([r["features"] for r in rows]),
+                torch.from_numpy(np.stack([r["spatials"] for r in rows])),
+                torch.from_numpy(np.stack([r["image_mask"] for r in rows]))]
+        if self._stream is None:
+            return parts
+        spans, total = [], 0
+        for t in parts:
+            nbytes = t.numel() * t.element_size()
+            spans.append((total, nbytes))
+            total += _align(nbytes)
+        buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+
+        def views(b):
+            return [b[o:o + n].view(t.dtype).view(t.shape)
+                    for t, (o, n) in zip(parts, spans)]
+
+        for dst, src in zip(views(buf), parts):
+            dst.copy_(src)
+        return views(buf.to(self.device, non_blocking=True))
+
+    def _write_slab(self, slots: torch.Tensor, *rows: torch.Tensor) -> None:
+        """Write uploaded rows (features, spatials, image_mask) into their
+        slab slots, in place."""
+        for name, t in zip(("features", "spatials", "image_mask"), rows):
+            dst = self._slab[name]
+            dst.index_copy_(0, slots, t.to(dst.dtype))
+
+    def _rows_step(self, pack: torch.Tensor, collect_attention: bool = False
+                   ) -> Tuple[ViLBertOutput, torch.Tensor, List[tuple]]:
+        """One forward over a device pack: gather the rows from the slab
+        by slot, run the trunk, the heads and the decode bundle, and
+        flatten the bundle. What warmup captures per bucket."""
+        nt = self.cfg.engine.max_text_len
+        slots = pack[:, 3 * nt + 1]
+        slab = self._slab
+        task_ids = pack[:, 3 * nt:3 * nt + 1]
+        image_mask = slab["image_mask"].index_select(0, slots)
+        args = (pack[:, :nt], slab["features"].index_select(0, slots),
+                slab["spatials"].index_select(0, slots), pack[:, nt:2 * nt],
+                pack[:, 2 * nt:3 * nt], image_mask, None, task_ids)
+        if self.head_slabs is not None:
+            trunk_out = self.model.trunk(
+                *args, output_all_attention_masks=collect_attention)
+            out, label_logits = fused_head_output(
+                self.model_config, self.head_slabs, trunk_out, image_mask,
+                self.compute_dtype)
+            bundle = self._fused_bundle(out, label_logits, task_ids,
+                                        self._gqa_gather)
+        else:
+            out = self.model(
+                *args, output_all_attention_masks=collect_attention,
+                compute_pretraining_heads=False)
+            bundle = self._decode_bundle(out)
+        flat, spec = _flatten_bundle(bundle, pack.shape[0])
+        return out, flat, spec
+
+    def _call_forward(self, fn):
+        """All device forwards funnel through here — resilience gate first:
+        ``fault_point("engine.dispatch")`` lets a chaos plan flap/slow the
+        device path, a killed replica fails fast, and the breaker turns
+        sustained dispatch failures into fast fails."""
+        fault_point("engine.dispatch")
+        if self.killed:
+            raise ReplicaKilled(
+                f"engine replica {self.replica_id or '?'} is dead")
+        self._breaker.preflight()
+        try:
+            result = fn()
+        except Exception:
+            self._breaker.record_failure()
+            raise
+        self._breaker.record_success()
+        return result
+
+    def _stream_ctx(self):
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
+
+    def _run_rows(self, bucket: int, collect_attention: bool, text: dict,
+                  rows: Sequence[tuple], *, keep_out: bool = False
+                  ) -> _Dispatch:
+        """Enqueue one dispatch: resolve each (host_row, cache_key) to a
+        slab slot (pad slots are 0), upload the new rows and the pack,
+        write the slab, then the forward — the bucket's graph when one is
+        captured and no attention maps are asked for, else eager — and
+        the bundle's copy to pinned host memory. Returns without waiting
+        on the card. ``keep_out`` keeps the model output (copied off the
+        graph's static tensors)."""
+        self._row_slab()  # built outside the (non-reentrant) lock hold
+        with self._dispatch_lock, torch.inference_mode(), \
+                self._stream_ctx():
+            inserts: dict = {}
+            with self._input_cache_lock:
+                self._pack_keys = set()  # keys this pack reads (hits too)
+                slots = []
+                for row, key in rows:
+                    slots.append(self._row_slot_locked(key, inserts, row))
+                    if key is not None:
+                        self._pack_keys.add(key)
+            slots.extend([0] * (bucket - len(slots)))
+            parts = self._upload(inserts, self._pack_host(text, slots))
+            pack = parts[0]
+            if inserts:
+                self._write_slab(*parts[1:])
+            graph = (None if collect_attention
+                     else self._graphs.get(bucket))
+
+            def forward():
+                if graph is None:
+                    return self._rows_step(pack, collect_attention)
+                graph.static_pack.copy_(pack)
+                graph.replay()
+                return graph.out, graph.flat, graph.spec
+
+            out, flat, spec = self._call_forward(forward)
+            if self._stream is None:
+                return _Dispatch(flat, spec, None, out if keep_out else None)
+            if keep_out:
+                out = _clone_output(out) if graph is not None else out
+            host = torch.empty(flat.shape, dtype=torch.float32,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+            return _Dispatch(host, spec, event, out if keep_out else None)
 
     def bundle(self, req: PreparedRequest, *, collect_attention: bool = False
                ) -> Tuple[ViLBertOutput, dict]:
         """Upload, trunk + heads + decode bundle on the device, and the one
         blocking fetch of the few-KB bundle → (device output, host bundle)."""
-        batch = self._device_batch(req)
-        args = (batch["input_ids"], batch["features"], batch["spatials"],
-                batch["segment_ids"], batch["input_mask"],
-                batch["image_mask"], None, batch["task_ids"])
-        with torch.inference_mode():
-            if self.head_slabs is not None:
-                trunk_out = self.model.trunk(
-                    *args, output_all_attention_masks=collect_attention)
-                out, label_logits = fused_head_output(
-                    self.model_config, self.head_slabs, trunk_out,
-                    batch["image_mask"], self.compute_dtype)
-                bundle = self._fused_bundle(out, label_logits,
-                                            batch["task_ids"],
-                                            self._gqa_gather)
-            else:
-                out = self.model(
-                    *args, output_all_attention_masks=collect_attention,
-                    compute_pretraining_heads=False)
-                bundle = self._decode_bundle(out)
-        return out, _to_host(bundle)
+        text = dict(input_ids=req.text.input_ids,
+                    segment_ids=req.text.segment_ids,
+                    input_mask=req.text.input_mask, task_ids=req.task_ids)
+        d = self._run_rows(req.bucket, collect_attention, text,
+                           self._request_rows(req), keep_out=True)
+        return d.out, d.fetch()
 
-    def run(self, req: PreparedRequest, *, collect_attention: bool = False
-            ) -> Tuple[ViLBertOutput, dec.TaskResult]:
+    def run(self, req: PreparedRequest, *, collect_attention: bool = False,
+            deadline=None) -> Tuple[ViLBertOutput, dec.TaskResult]:
         """Device forward for a prepared request → (output, decoded result).
-        ``forward_s`` spans upload, forward and the bundle fetch; decode is
-        then pure host math."""
+
+        ``deadline`` (a :class:`resilience.Deadline`) is checked at entry:
+        an expired budget raises :class:`DeadlineExceeded` before any
+        device work. ``forward_s`` spans pack, upload, forward and the
+        bundle fetch; decode is then pure host math."""
+        if deadline is not None and deadline.expired():
+            raise DeadlineExceeded(
+                f"deadline expired {-deadline.remaining_s():.2f}s before "
+                f"dispatch (task {req.spec.task_id})")
         t0 = time.perf_counter()
-        out, bundle = self.bundle(req, collect_attention=collect_attention)
+        with obs.span("engine.forward", bucket=req.bucket,
+                      task_id=req.spec.task_id,
+                      replica=self.replica_id or ""):
+            out, bundle = self.bundle(req,
+                                      collect_attention=collect_attention)
         self.stage_times["forward_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        result = self.decode(req, bundle)
+        with obs.span("engine.decode", task_id=req.spec.task_id):
+            result = self.decode(req, bundle)
         self.stage_times["decode_s"] = time.perf_counter() - t0
         return out, result
+
+    def run_many(self, reqs: Sequence[PreparedRequest], *,
+                 chunk_rows: Optional[int] = None, deadline=None,
+                 on_result=None) -> List[dec.TaskResult]:
+        """Cross-task micro-batching: many requests, few forwards.
+
+        Every head computes over the whole batch anyway (the trunk
+        dominates), and per-row ``task_ids`` keep the task-token
+        embeddings per request, so any mix of tasks packs into one chunk.
+        Multi-image requests (NLVR2 pairs, retrieval) share chunks too: a
+        request's rows stay consecutive and even-image-count requests lead
+        each chunk (see :meth:`chunk_plan`).
+
+        At most ``_MAX_INFLIGHT_CHUNKS`` chunks are enqueued ahead of the
+        oldest fetch, so the host packs chunk k+1 while the card computes
+        chunk k. ``on_result(pos, result)`` streams each member's decoded
+        result as its chunk drains; exceptions from the callback
+        propagate. ``deadline`` is checked once at entry.
+        """
+        if not reqs:
+            return []
+        if deadline is not None and deadline.expired():
+            raise DeadlineExceeded(
+                f"deadline expired {-deadline.remaining_s():.2f}s before "
+                f"batch dispatch ({len(reqs)} requests)")
+        plan = self.chunk_plan([r.n_images for r in reqs],
+                               chunk_rows=chunk_rows)
+        chunks = [[(pos, reqs[pos]) for pos in idxs] for idxs in plan]
+        out: List[Optional[dec.TaskResult]] = [None] * len(reqs)
+        pending: deque = deque()
+        dec_s = 0.0
+        t0 = time.perf_counter()
+
+        def _drain_one() -> None:
+            nonlocal dec_s
+            c, dispatch = pending.popleft()
+            bundle = dispatch.fetch()
+            td = time.perf_counter()
+            with obs.span("engine.decode", n_requests=len(c)):
+                row = 0
+                for pos, r in c:
+                    out[pos] = self.decode(r, bundle, row=row)
+                    row += r.n_images
+                    if on_result is not None:
+                        on_result(pos, out[pos])
+            dec_s += time.perf_counter() - td
+
+        with obs.span("engine.run_many", replica=self.replica_id or "",
+                      n_requests=len(reqs), n_chunks=len(chunks)):
+            for c in chunks:
+                pending.append((c, self._dispatch_many([r for _, r in c])))
+                if len(pending) >= self._MAX_INFLIGHT_CHUNKS:
+                    _drain_one()
+            while pending:
+                _drain_one()
+        self.stage_times["forward_s"] = time.perf_counter() - t0 - dec_s
+        self.stage_times["decode_s"] = dec_s
+        return out
+
+    def chunk_plan(self, image_counts: Sequence[int], *,
+                   chunk_rows: Optional[int] = None) -> List[List[int]]:
+        """run_many's packing, exposed: request indices per chunk.
+
+        Chunks pack at the largest row bucket (``max_batch_rows``) unless
+        ``chunk_rows`` says otherwise (it must fit a row bucket). Mixed
+        image counts share chunks; two invariants make that safe:
+
+        - a request's rows stay consecutive (each chunk lists whole
+          requests; :meth:`_dispatch_many` packs spans in plan order);
+        - even-image-count requests precede odd ones inside a chunk, so
+          every even-count request starts at an even row offset — the
+          binary head pairs batch rows 2k/2k+1, and NLVR2's pair must be
+          one of those pairs.
+
+        This is the one copy of the packing arithmetic: run_many executes
+        it and :meth:`padded_rows` counts from it.
+        """
+        max_bucket = (chunk_rows if chunk_rows is not None
+                      else self.cfg.engine.max_batch_rows())
+        self.cfg.engine.row_bucket_for(max_bucket)  # raises on <1 or misfit
+        for n in image_counts:
+            if n > max_bucket:
+                raise ValueError(
+                    f"request with {n} images exceeds the "
+                    f"{max_bucket}-row chunk; raise throughput_buckets or "
+                    f"chunk_rows")
+        order = ([i for i, n in enumerate(image_counts) if n % 2 == 0]
+                 + [i for i, n in enumerate(image_counts) if n % 2])
+        chunks: List[List[int]] = []
+        cur: List[int] = []
+        cur_rows = 0
+        for i in order:
+            n = image_counts[i]
+            if cur_rows + n > max_bucket:
+                chunks.append(cur)
+                cur, cur_rows = [], 0
+            cur.append(i)
+            cur_rows += n
+        if cur:
+            chunks.append(cur)
+        return chunks
+
+    def padded_rows(self, image_counts: Sequence[int], *,
+                    chunk_rows: Optional[int] = None) -> int:
+        """Total device rows a run_many over these requests dispatches,
+        bucket padding included — the work term of rows/s and FLOP
+        accounting."""
+        counts = list(image_counts)
+        return sum(
+            self.cfg.engine.row_bucket_for(sum(counts[i] for i in chunk))
+            for chunk in self.chunk_plan(counts, chunk_rows=chunk_rows))
+
+    def _dispatch_many(self, reqs: Sequence[PreparedRequest]) -> _Dispatch:
+        """Pack one ≤max-bucket chunk and enqueue its forward. A request's
+        rows (one per image, text replicated) stay consecutive, in request
+        order; pad rows repeat the last row's text and read slab slot 0."""
+        spans = [(r, i) for r in reqs for i in range(r.n_images)]
+        bucket = self.cfg.engine.row_bucket_for(len(spans))
+        pad = bucket - len(spans)
+
+        def pack(rows, pad_row):
+            return np.stack(list(rows) + [pad_row] * pad, axis=0)
+
+        last = reqs[-1]
+        text = dict(
+            input_ids=pack([r.text.input_ids[i] for r, i in spans],
+                           last.text.input_ids[-1]),
+            segment_ids=pack([r.text.segment_ids[i] for r, i in spans],
+                             last.text.segment_ids[-1]),
+            input_mask=pack([r.text.input_mask[i] for r, i in spans],
+                            last.text.input_mask[-1]),
+            task_ids=pack([r.task_ids[i] for r, i in spans],
+                          last.task_ids[-1]),
+        )
+        rows = [(dict(features=r.features[i], spatials=r.spatials[i],
+                      image_mask=r.image_mask[i]),
+                 r.cache_keys[i] if r.cache_keys is not None else None)
+                for r, i in spans]
+        return self._run_rows(bucket, False, text, rows)
+
+    # --------------------------------------------------------------- warmup
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               parallel: Optional[bool] = None) -> None:
+        """Make every row bucket ready before the first request: on the
+        card, capture one CUDA graph per bucket (engine/graphs.py); on the
+        CPU, run each bucket's forward once.
+
+        Default buckets: ``all_row_buckets()`` — the image buckets (run())
+        and the throughput buckets (run_many). Each bucket first runs its
+        step eagerly on the engine stream over a pack of pad rows, then is
+        captured. ``parallel`` is accepted for the serve tier's seam and
+        unused on this backend: capture is not thread-safe the way XLA
+        compiles are, so buckets capture one at a time. A failed capture
+        raises.
+        """
+        del parallel  # one bucket at a time (see above)
+        buckets = list(buckets if buckets is not None
+                       else self.cfg.engine.all_row_buckets())
+        self._row_slab()
+        nt = self.cfg.engine.max_text_len
+        for b in buckets:
+            if b in self._graphs:
+                continue
+            t0 = time.perf_counter()
+            with self._dispatch_lock, torch.inference_mode(), \
+                    self._stream_ctx():
+                pack = torch.zeros((b, 3 * nt + 2), dtype=torch.long,
+                                   device=self.device)
+                pack[:, 2 * nt:3 * nt] = 1  # text mask; slot 0 = pad row
+                self._rows_step(pack)
+                if self._stream is None:
+                    continue
+                self._stream.synchronize()
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graphs[b] = graphs.capture(
+                    b, self._rows_step, pack, stream=self._stream,
+                    pool=self._graph_pool)
+            self.book_boot_time("compile_s", time.perf_counter() - t0)
 
     # ---------------------------------------------------------------- decode
     def decode(self, req: PreparedRequest, bundle: dict, row: int = 0

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -166,10 +167,17 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         "q, k, v and bias of one dtype, got "
                         f"{[str(t.dtype) for t in (q, k, v, bias)]}")
     out = _launch(q, k, v, bias)
-    flash_cross_attention.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        rec = flash_cross_attention.recorded
+        rec.n = getattr(rec, "n", 0) + 1
+    else:
+        flash_cross_attention.launches += 1
     return out
 
 
 # Kernel launches since the last reset (chip_smoke.py zeroes it before the
 # main path and reads it after); CPU calls never count.
 flash_cross_attention.launches = 0
+# Calls recorded into a CUDA graph by this thread's capture: they launch
+# nothing now, and engine/graphs.py adds them to ``launches`` per replay.
+flash_cross_attention.recorded = threading.local()
