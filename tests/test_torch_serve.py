@@ -20,6 +20,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from tests.torch_port_helpers import (
     assert_same_result,
@@ -31,6 +32,7 @@ from vilbert_multitask_tpu.config import (
     FrameworkConfig,
     ViLBertConfig,
 )
+from vilbert_multitask_tpu_torch.config import DetectorConfig
 from vilbert_multitask_tpu_torch.resilience import Deadline
 from vilbert_multitask_tpu_torch.serve import (
     DurableQueue,
@@ -229,14 +231,22 @@ def test_worker_step_runs_jobs_through_run(world, tmp_path):
 
 
 def test_serveapp_refuses_what_is_not_ported(world, tmp_path):
+    """Checkpoints and live extraction are ported (tests/
+    test_torch_detect_serve.py); what the app still refuses: a trunk
+    checkpoint that is not there, a detector checkpoint without live
+    extraction, and live extraction on a card that is not there."""
     pcfg = dataclasses.replace(world["port"].cfg,
                                serving=_serving(world["port"].cfg, tmp_path))
-    with pytest.raises(NotImplementedError, match="A5"):
-        ServeApp(pcfg, engine=world["port"], checkpoint_path="ckpt",
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServeApp(pcfg, engine=world["port"], live_extract=True,
-                 device="cpu")
+    with pytest.raises(FileNotFoundError):
+        ServeApp(pcfg, feature_root=world["root"],
+                 checkpoint_path=str(tmp_path / "missing.bin"), device="cpu")
+    with pytest.raises(ValueError, match="needs live_extract"):
+        ServeApp(pcfg, engine=world["port"], device="cpu",
+                 detector_checkpoint=str(tmp_path / "model_final.pth"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServeApp(pcfg, feature_root=world["root"], live_extract=True,
+                     detector=DetectorConfig().tiny())
 
 
 def test_serveapp_boots_its_own_cpu_engines(world, tmp_path):

@@ -236,3 +236,59 @@ def assert_same_result(got, want, tol, path="result"):
         np.testing.assert_allclose(got, want, err_msg=path, **tol)
     else:
         assert got == want, (path, got, want)
+
+
+# ----------------------------------------------------------------- detector
+def random_boxes(rng, n: int, *, ties: bool = False, extent: float = 100.0):
+    """(n, 4) xyxy f32 boxes inside ``extent`` (sides 1-60, so many
+    overlap) and (n,) f32 scores in [0, 1); ``ties`` rounds the scores to
+    fifths, so most of them tie."""
+    xy = rng.uniform(0, extent, (n, 2))
+    wh = rng.uniform(1, 60, (n, 2))
+    boxes = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+    scores = rng.random(n)
+    if ties:
+        scores = np.round(scores * 5) / 5
+    return boxes, scores.astype(np.float32)
+
+
+def detector_params(cfg, seed: int = 0, noise: float = 0.05) -> dict:
+    """The JAX ``FasterRCNN``'s init tree for ``cfg`` (f32 numpy) with seeded
+    noise on every leaf, then the two scales the port's seeded init applies
+    (``detect.model.init_state_dict``: stem FrozenBN 1/64, each block's bn3
+    0.2), so the RPN sigmoids and class scores spread instead of
+    saturating."""
+    from vilbert_multitask_tpu.detect.model import FasterRCNN as JaxRCNN
+
+    c = cfg.canvas
+    model = JaxRCNN(cfg)
+    params = jax.jit(lambda key: model.init(
+        key, jnp.zeros((c, c, 3), jnp.float32),
+        jnp.asarray([c, c], jnp.float32))["params"])(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed + 100)
+    params = jax.tree_util.tree_map(
+        lambda x: (np.asarray(x, np.float32)
+                   + noise * rng.normal(size=x.shape).astype(np.float32)),
+        params)
+    params["backbone"]["stem_bn"]["scale"] /= 64.0
+    for name, block in params["backbone"].items():
+        if name.startswith("stage"):
+            block["bn3"]["scale"] *= 0.2
+    return params
+
+
+def maskrcnn_state_dict(params: dict, cfg) -> dict:
+    """A maskrcnn_benchmark-layout detector state dict (numpy) holding the
+    same function as the Flax tree ``params``: the JAX package's
+    ``to_torch_state_dict`` (torchvision-style keys, FrozenBN as weight /
+    bias with zero mean and unit variance), with fc6's inputs put in
+    maskrcnn's (C, res, res) flatten order."""
+    from vilbert_multitask_tpu.detect.convert import to_torch_state_dict
+
+    sd = to_torch_state_dict(params, cfg)
+    res, ch = cfg.roi_resolution, cfg.fpn_channels
+    kernel = np.asarray(params["fc6"]["kernel"])  # (res·res·C, D)
+    sd["roi_heads.box.feature_extractor.fc6.weight"] = np.ascontiguousarray(
+        kernel.reshape(res, res, ch, -1).transpose(3, 2, 0, 1).reshape(
+            kernel.shape[1], -1))
+    return sd

@@ -195,3 +195,36 @@ def from_flax_params(params: Dict, cfg: ViLBertConfig) -> Dict[str, Arr]:
     out["cls.predictions.decoder.weight"] = np.asarray(
         params["bert"]["embeddings"]["word_embeddings"]["embedding"])
     return out
+
+
+def load_torch_checkpoint(path: str, cfg: ViLBertConfig
+                          ) -> Dict[str, "torch.Tensor"]:
+    """Read the reference's ``pytorch_model_*.bin`` (a torch pickle) into
+    an upstream-layout state dict for ``load_state_dict(strict=True)``.
+
+    Counterpart of the JAX package's ``load_torch_checkpoint``
+    (``vilbert_multitask_tpu/checkpoint/convert.py:264``): CPU-mapped
+    (reference worker.py:83,530-532), ``weights_only=True``, a
+    ``"state_dict"`` wrapper unwrapped and a ``module.`` prefix (a
+    DataParallel save) stripped. The module tree is already in this
+    layout, so no key is renamed: the keys must be exactly the ones the
+    model of ``cfg`` has (raises ``KeyError`` naming the missing and
+    unexpected ones), checked here so that a wrong file fails before any
+    replica of a rolling swap is drained for it."""
+    import torch
+
+    from vilbert_multitask_tpu_torch.models.vilbert import ViLBertForVLTasks
+
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(raw, dict) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in raw.items()}
+    with torch.device("meta"):
+        want = set(ViLBertForVLTasks(cfg).state_dict())
+    missing, unexpected = sorted(want - set(sd)), sorted(set(sd) - want)
+    if missing or unexpected:
+        raise KeyError(f"{path}: {len(missing)} missing keys (e.g. "
+                       f"{missing[:3]}), {len(unexpected)} unexpected keys "
+                       f"(e.g. {unexpected[:3]}) for this model config")
+    return sd

@@ -293,6 +293,53 @@ class EngineConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DetectorConfig:
+    """Faster R-CNN region-feature extractor (detect/model.py).
+
+    Defaults mirror the reference's X-152-32x8d-FPN geometry
+    (maskrcnn_benchmark driven from reference worker.py:59-89): ResNeXt
+    bottleneck stages (3, 8, 36, 3) with 32 groups × width 8, a 256-channel
+    FPN, class-agnostic proposals, fc6 2048-d region features, 1601 VG
+    classes. ``tiny()`` scales the same topology down for CPU tests.
+    The serving default remains precomputed features; live extraction
+    serves novel uploads.
+    """
+
+    # --- backbone (ResNeXt) ---
+    stem_channels: int = 64
+    stage_blocks: Sequence[int] = (3, 8, 36, 3)  # X-152
+    groups: int = 32
+    width_per_group: int = 8
+    stage_channels: Sequence[int] = (256, 512, 1024, 2048)
+    # --- FPN ---
+    fpn_channels: int = 256
+    # --- RPN ---
+    anchor_sizes: Sequence[int] = (32, 64, 128, 256, 512)  # per level P2..P6
+    aspect_ratios: Sequence[float] = (0.5, 1.0, 2.0)
+    rpn_pre_nms_top_n: int = 1000
+    rpn_post_nms_top_n: int = 300
+    rpn_nms_thresh: float = 0.7
+    # --- ROI box head ---
+    roi_resolution: int = 7
+    roi_sampling: int = 2
+    representation_size: int = 2048  # fc6/fc7 width → the ViLBERT v_feature
+    num_classes: int = 1601  # VG classes incl. background col 0
+    # --- input canvas (one fixed size) ---
+    canvas: int = 1344  # fits short-side-800/long-side-1333 preprocessing
+
+    def tiny(self, **overrides) -> "DetectorConfig":
+        small = dict(
+            stem_channels=8, stage_blocks=(1, 1, 1, 1), groups=2,
+            width_per_group=4, stage_channels=(16, 32, 64, 128),
+            fpn_channels=16, rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32,
+            roi_resolution=3, roi_sampling=2, representation_size=32,
+            num_classes=7, canvas=64,
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Web/queue tier (replaces Django settings + demo/constants.py +
     sender/worker pika constants). A copy of the JAX package's

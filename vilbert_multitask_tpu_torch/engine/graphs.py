@@ -51,10 +51,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from vilbert_multitask_tpu_torch.detect.model import roi_align
 from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
+from vilbert_multitask_tpu_torch.ops.nms import nms_mask
 
 # Every hand-written kernel's wrapper (each carries a ``launches`` count).
-KERNEL_WRAPPERS = (flash_cross_attention,)
+KERNEL_WRAPPERS = (flash_cross_attention, nms_mask, roi_align)
 
 
 @dataclasses.dataclass
@@ -91,7 +93,7 @@ def capture(bucket: int, step: Callable[[torch.Tensor], Tuple],
     with torch.cuda.graph(graph, pool=pool, stream=stream,
                           capture_error_mode="thread_local"):
         out, flat, spec = step(static_pack)
-    recorded = {w: w.recorded.n for w in KERNEL_WRAPPERS}
+    recorded = {w: w.recorded.n for w in KERNEL_WRAPPERS if w.recorded.n}
     stream.synchronize()
     return BucketGraph(bucket, graph, static_pack, out, flat, spec,
                        recorded, time.perf_counter() - t0)

@@ -131,6 +131,11 @@ class FeatureStore:
             f"no feature file for key '{key}' under {self.root} (.npy/.vlfr)"
         )
 
+    def identity(self, image_path: str) -> str:
+        """Content-stable identity for this image's features: resolved file
+        path + mtime + size (what :meth:`fetch` returns beside them)."""
+        return file_identity(self.path_for(image_key(image_path)))
+
     def fetch(self, image_path: str) -> tuple[RegionFeatures, str]:
         """(features, content identity) — the identity is captured BEFORE
         the read, so a file replaced mid-request can at worst bind an OLD

@@ -11,10 +11,13 @@ queue/store files.
 
 boots on the card, warms (captures one CUDA graph per row bucket, see
 engine/graphs.py) and serves. ``--device cpu`` runs the same binary on the
-CPU (plain kernel versions, no graphs). What the JAX app does that this one
-does not yet: restore a checkpoint (ROADMAP A5; ``checkpoint_path`` raises),
-live detection (A10; ``live_extract``/``detector_checkpoint`` raise), meshes
-and the XLA/AOT compile caches (no counterpart on this backend).
+CPU (plain kernel versions, no graphs). ``--live-extract`` answers uploads
+that have no precomputed features through the live detector (detect/);
+``--checkpoint`` loads the reference's ``pytorch_model_*.bin`` and
+``--detector-checkpoint`` a maskrcnn detector ``.pth`` (torch files: the
+JAX package's Orbax directories are not read here). What the JAX app does
+that this one does not: meshes and the XLA/AOT compile caches (no
+counterpart on this backend).
 """
 
 from __future__ import annotations
@@ -27,7 +30,11 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 from vilbert_multitask_tpu_torch import obs
-from vilbert_multitask_tpu_torch.config import FrameworkConfig, config_fingerprint
+from vilbert_multitask_tpu_torch.config import (
+    DetectorConfig,
+    FrameworkConfig,
+    config_fingerprint,
+)
 from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
 from vilbert_multitask_tpu_torch.features.store import FeatureStore
 from vilbert_multitask_tpu_torch.serve.autoscale import Autoscaler
@@ -57,21 +64,20 @@ class ServeApp:
                  checkpoint_path: Optional[str] = None,
                  live_extract: bool = False,
                  detector_checkpoint: Optional[str] = None,
+                 detector: Optional[DetectorConfig] = None,
                  engine_factory: Optional[Callable[[], Any]] = None,
                  device: str = "cuda"):
         self.cfg = cfg or FrameworkConfig()
         s = self.cfg.serving
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoint restore is not ported yet (ROADMAP A5); omit "
-                "checkpoint_path to serve seeded random weights, or pass "
-                "params through an engine")
-        if live_extract or detector_checkpoint is not None:
-            raise NotImplementedError(
-                "live region extraction is not ported yet (ROADMAP A10); "
-                "serve precomputed features from feature_root")
+        if detector_checkpoint is not None and not live_extract:
+            raise ValueError("detector_checkpoint needs live_extract=True")
+        # The live detector's geometry (DetectorConfig() at serving width);
+        # its fc6 width always follows the trunk's region features.
+        self.detector_cfg = dataclasses.replace(
+            detector or DetectorConfig(),
+            representation_size=self.cfg.model.v_feature_size)
         self.boot_info: dict = {"phase": "booting"}
-        self.extractor = None  # live extraction is not ported (A10)
+        self.extractor = None
         self.hub = PushHub()
         self.queue = DurableQueue(
             s.queue_db_path, queue_name=s.queue_name,
@@ -79,14 +85,23 @@ class ServeApp:
             max_deliveries=s.queue_max_deliveries)
         self.store = ResultStore(s.results_db_path)
         if engine is None:
+            params = None
+            if checkpoint_path is not None:
+                from vilbert_multitask_tpu_torch.checkpoint.convert import (
+                    load_torch_checkpoint,
+                )
+
+                params = load_torch_checkpoint(checkpoint_path,
+                                               self.cfg.model)
             store = FeatureStore(feature_root)
+            if live_extract:
+                store = self._live_store(store, detector_checkpoint, device)
             t0 = time.perf_counter()
             with obs.span("serve.boot"):
-                # pool_replicas engines share ONE set of seeded weights
-                # (engine 0 draws them; the rest load its state dict) and
-                # one feature store. Each keeps its own slab, input cache,
-                # graphs, stream and breaker.
-                params = None
+                # pool_replicas engines share ONE set of weights (the
+                # checkpoint's, or engine 0 draws seeded ones and the rest
+                # load its state dict) and one feature store. Each keeps
+                # its own slab, input cache, graphs, stream and breaker.
                 engines = []
                 for i in range(max(1, s.pool_replicas)):
                     engines.append(InferenceEngine(
@@ -114,6 +129,16 @@ class ServeApp:
             engines = list(engine) if isinstance(engine, (list, tuple)) \
                 else [engine]
             self.engine = ReplicaPool(engines, serving=s)
+        if live_extract and self.extractor is None:
+            # An injected engine keeps its feature store, wrapped the same
+            # way (one extractor for the pool, one wrapper per store).
+            wrapped: Dict[int, Any] = {}
+            for rep in self.engine.replicas:
+                base = rep.engine.feature_store
+                if id(base) not in wrapped:
+                    wrapped[id(base)] = self._live_store(
+                        base, detector_checkpoint, device)
+                rep.engine.feature_store = wrapped[id(base)]
         self.boot_info["replicas"] = [r.name for r in self.engine.replicas]
         self._refresh_boot_phases()
         self.fingerprint = config_fingerprint(self.cfg)
@@ -214,6 +239,32 @@ class ServeApp:
         self.http_port: Optional[int] = None  # actual bound port after start
         self._stop = threading.Event()
         self._worker_thread: Optional[threading.Thread] = None
+
+    def _live_store(self, store, detector_checkpoint: Optional[str],
+                    device: str):
+        """Wrap ``store`` so novel uploads with no precomputed features run
+        through the live detector (reference worker.py:59-223; detect/).
+        Seeded random detector weights unless a maskrcnn checkpoint is
+        given."""
+        from vilbert_multitask_tpu_torch.detect import (
+            FallbackFeatureStore,
+            LiveFeatureExtractor,
+        )
+
+        if self.extractor is None:
+            params = None
+            if detector_checkpoint is not None:
+                from vilbert_multitask_tpu_torch.detect.convert import (
+                    load_torch_detector,
+                )
+
+                params = load_torch_detector(detector_checkpoint,
+                                             self.detector_cfg)
+            self.extractor = LiveFeatureExtractor(
+                self.detector_cfg, params=params, device=device)
+        self.boot_info["live_extract"] = True
+        return FallbackFeatureStore(store, self.extractor,
+                                    media_root=self.cfg.serving.media_root)
 
     def _refresh_boot_phases(self) -> None:
         """Fold the engines' boot-phase split (upload_s: weight load;
@@ -362,15 +413,21 @@ class ServeApp:
         return vals
 
     def warm(self) -> None:
-        """Capture every row bucket's CUDA graph (engine.warmup); timings
-        land in ``/healthz``. An un-warmed engine serves eagerly — debug
-        only: every request then pays the host's launch cost."""
+        """Capture every row bucket's CUDA graph (engine.warmup) and run the
+        live detector once, if enabled (its kernels build and cuDNN plans
+        its convolutions before the first upload, never in the worker
+        thread); timings land in ``/healthz``. An un-warmed engine serves
+        eagerly — debug only: every request then pays the host's launch
+        cost."""
         prev_phase = self.boot_info.get("phase")
         self.boot_info["phase"] = "warming"
         t0 = time.perf_counter()
         with obs.span("serve.warmup",
                       buckets=list(self.cfg.engine.all_row_buckets())):
             self.engine.warmup()
+            if self.extractor is not None:
+                self.extractor.warmup()
+                self.boot_info["detector_warm"] = True
         self.boot_info.update(
             warmup_s=round(time.perf_counter() - t0, 1),
             buckets=list(self.cfg.engine.all_row_buckets()),
@@ -394,15 +451,18 @@ class ServeApp:
         enqueues, no request observes the swap at all. Same-shape trees
         swap with ZERO recompiles (compiled programs take params as a call
         argument — engine.load_params copies into the captured weights in
-        place). Restoring from ``checkpoint_path`` is not ported yet
-        (ROADMAP A5): pass ``params`` (an upstream-layout state dict)."""
+        place). ``checkpoint_path`` is an upstream ``.bin``/``.pth``
+        (:func:`..checkpoint.convert.load_torch_checkpoint`); ``params``
+        an upstream-layout state dict."""
         if params is None:
             if checkpoint_path is None:
                 raise ValueError("rolling_swap needs checkpoint_path or "
                                  "params")
-            raise NotImplementedError(
-                "checkpoint restore is not ported yet (ROADMAP A5); pass "
-                "params")
+            from vilbert_multitask_tpu_torch.checkpoint.convert import (
+                load_torch_checkpoint,
+            )
+
+            params = load_torch_checkpoint(checkpoint_path, self.cfg.model)
         t0 = time.perf_counter()
         obs.record_event("rolling_swap_start",
                          checkpoint=checkpoint_path or "<in-memory>")
@@ -559,13 +619,24 @@ def main(argv=None) -> None:
                         "(requests then run eagerly, paying the host's "
                         "launch cost; debug only)")
     p.add_argument("--tiny", action="store_true",
-                   help="tiny model config (rehearsals and tests; features "
-                        "must be 32-wide)")
+                   help="tiny model and detector configs (rehearsals and "
+                        "tests; features must be 32-wide)")
     p.add_argument("--http-port", type=int, default=None,
                    help="HTTP port (default ServingConfig.http_port; 0 = "
                         "any free port)")
     p.add_argument("--ws-port", type=int, default=None,
                    help="websocket port (default ServingConfig.ws_port)")
+    p.add_argument("--checkpoint", default=None,
+                   help="the reference's trunk checkpoint "
+                        "(pytorch_model_*.bin, upstream torch layout); "
+                        "omitting it serves SEEDED RANDOM weights")
+    p.add_argument("--live-extract", action="store_true",
+                   help="run the Faster R-CNN on uploads with no "
+                        "precomputed features (detect/); seeded random "
+                        "weights unless --detector-checkpoint is given")
+    p.add_argument("--detector-checkpoint", default=None,
+                   help="maskrcnn_benchmark detector checkpoint (.pth, "
+                        "torch layout) for --live-extract")
     args = p.parse_args(argv)
 
     cfg = FrameworkConfig()
@@ -575,9 +646,14 @@ def main(argv=None) -> None:
                                ("ws_port", args.ws_port)) if v is not None}
     cfg = dataclasses.replace(cfg, serving=dataclasses.replace(
         cfg.serving, **ports))
-    app = ServeApp(cfg, feature_root=args.features, device=args.device)
-    print("WARNING: checkpoint loading is not ported yet (ROADMAP A5); "
-          "serving seeded random weights (answers will be meaningless)")
+    app = ServeApp(cfg, feature_root=args.features, device=args.device,
+                   checkpoint_path=args.checkpoint,
+                   live_extract=args.live_extract,
+                   detector_checkpoint=args.detector_checkpoint,
+                   detector=DetectorConfig().tiny() if args.tiny else None)
+    if args.checkpoint is None:
+        print("WARNING: no --checkpoint given; serving seeded random "
+              "weights (answers will be meaningless)")
     if not args.no_warmup:
         print("capturing bucket graphs...")
         app.warm()
