@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. device: the card's name and power limit (nvidia-smi), and whether PIL
    is installed;
 2. build: every kernel of the port from ``vilbert_multitask_tpu_torch/csrc``
-   (``flash_attn``, ``nms``, ``roi_align``), one nvcc per source, all
+   (``flash_attn``, ``int8_linear``, ``nms``, ``roi_align``), one nvcc per
+   source, all
    started together; per kernel instantiation, the registers, shared memory
    and spills ptxas reports (any spill fails) and the count of tensor-core
    (``HMMA``), async-copy (``LDGSTS``) and ``ldmatrix`` (``LDSM``)
@@ -26,11 +27,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ragged groups, identical, disjoint and tied boxes and IoUs exactly at
    the threshold; ``roi_align`` within atol 1e-5 + rtol 1e-5 at 300
    proposals over the 1344-canvas P2..P5 maps, boxes on level boundaries,
-   off the canvas, of zero area, and each level alone; per serving shape,
+   off the canvas, of zero area, and each level alone; ``int8_linear`` in
+   bf16 (atol 1e-2 + rtol 1e-2) and f32 (2e-5 x max(1, |ref|)) at every
+   (N, K) of the full-width forward at M = 38·{1, 32} and 101·{1, 32}, at
+   the shapes of a bucket-1 and a bucket-32 forward, at the edges (M = 1,
+   15, 17; N = 1, 3, 4, 3129; K = 5 and 37, the element-wise x path; K off
+   the 64-deep tiles) and on strided x; per serving shape,
    the kernel's device time (calls captured in a CUDA graph, replays timed
    by CUDA events, median), the plain version's, the yardstick library
-   call's where one exists (``scaled_dot_product_attention``, never called
-   by the port; none computes NMS or this ROIAlign), the same as eager
+   call's where one exists (``scaled_dot_product_attention``; ``F.linear``
+   on the pre-dequantized bf16 weight for ``int8_linear``, and
+   ``aten._weight_int8pack_mm`` where this PyTorch runs it on CUDA; never
+   called by the port; none computes NMS or this ROIAlign), the same as eager
    back-to-back calls (host launch cost included), and the least time the
    card could take (``bound_ms``);
 detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
@@ -64,6 +72,25 @@ detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
    same engine (bundles within rtol 0.1 / atol 0.05, identical top-1
    labels), input-cache hits on the repeated images; rows/s of 32-row
    chunks; the p50 of ``run()`` at bucket 1 through the graph and eagerly;
+int8. the int8 storage mode's main path at full width: seed-0 weights
+   saved with ``checkpoint.save_params`` and restored with
+   ``restore_params(dtype="int8")``, an ``InferenceEngine(device="cuda")``
+   with ``EngineConfig(param_dtype="int8")``; one request per decode family
+   through ``predict`` with exactly 189 (bucket 1; 191 at even buckets)
+   ``int8_linear`` and 18 ``flash_attn`` launches per forward; bundles
+   within rtol 0.1 / atol 0.05 of a CPU-f32 int8 engine on the same
+   quantized tree and within 0.15 / 0.15 of phase 4's bf16 engine; the
+   weights' device memory against a bf16 engine's; 7 bucket graphs, each
+   replay against eager; ``run()`` p50 (graph, eager) and ``run_many``
+   rows/s of the int8 and bf16 engines in turns (bf16, int8, int8, bf16);
+   how many seeded top-1 answers int8 changes; a ``rolling_swap`` of the
+   f32 checkpoint re-quantizes it to the same tensors and answers;
+cli. ``python -m vilbert_multitask_tpu_torch.evals.harness --task vqa``
+   on seeded data over phase 4's feature files prints the in-process
+   Evaluator's scores on phase 4's engine, and ``python -m
+   vilbert_multitask_tpu_torch.checkpoint.onboard`` on a seeded
+   upstream-layout ``.bin`` exits 0 holding that score, each in its own
+   process on the card;
 7. served: ``ServeApp(live_extract=True)`` on the same engine
    (``http_port=0``; a full-width seeded detector): the six decode families
    and 8 VQA submits posted over HTTP one at a time (each its own forward:
@@ -99,8 +126,9 @@ detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
 
 Kernel launch counts are read per path: each is zeroed just before the
 path runs and read just after (the detect phase's ``extract_array`` per
-image, phase 4's ``predict``, phase 6's ``run_many``, phase 7's served
-submits, which the kernels line reports); a path that launched a kernel of
+image, phase 4's ``predict``, phase 6's ``run_many``, the int8 phase's
+``predict``, phase 7's served submits, which the kernels line reports); a
+path that launched a kernel of
 its own no time fails. Graph replays count the launches their capture recorded
 (engine/graphs.py).
 
@@ -272,7 +300,8 @@ def kernel_build_notes(_build, name: str) -> list:
     out = []
     for mangled, rec in sorted(notes.items()):
         m = re.search(r"(flash_attn_(?:bf16|f32)_kernel|nms_mask_kernel|"
-                      r"nms_scan_kernel|roi_align_kernel)(?:ILi(\d+)E)?",
+                      r"nms_scan_kernel|roi_align_kernel|"
+                      r"int8_linear_(?:bf16|f32)_kernel)(?:IL[ib](\d+)E)?",
                       mangled)
         rec["kernel"] = (m.group(1) + (f"<{m.group(2)}>" if m.group(2)
                                        else "")) if m else mangled
@@ -664,6 +693,229 @@ def check_roi_align(torch, report: dict) -> dict:
                                  f" beyond atol 1e-5 + rtol 1e-5 ({what})")
     report["roi_align_cases"] = rows
     return rows[0]
+
+
+# ------------------------------------------------------- phase 3: int8_linear
+def int8_forward_shapes(mcfg, rows: int) -> list:
+    """The int8_linear launches of one forward of ``rows`` image rows at
+    the model config ``mcfg``: (M, N, K, batch, launches, where). 184 trunk
+    Linear calls at serving width, then the fused heads' products: 5 at an
+    odd row count, 7 at an even one (the NLVR2 pair head)."""
+    nt = 38 * rows  # 37 text tokens + the task token, per row
+    nv = 101 * rows  # 100 regions + the global box, per row
+    h, vh, bh = mcfg.hidden_size, mcfg.v_hidden_size, mcfg.bi_hidden_size
+    ti, vi = mcfg.intermediate_size, mcfg.v_intermediate_size
+    lt, lv, lc = (mcfg.num_hidden_layers, mcfg.v_num_hidden_layers,
+                  mcfg.num_connection_layers)
+    wl = max(mcfg.num_labels, mcfg.gqa_num_labels)
+    out = [
+        (nt, h, h, 1, 4 * lt, "text q/k/v/attention output"),
+        (nt, ti, h, 1, lt + lc, "text intermediate"),
+        (nt, h, ti, 1, lt + lc, "text output"),
+        (nv, vh, vh, 1, 4 * lv, "visual q/k/v/attention output"),
+        (nv, vi, vh, 1, lv + lc, "visual intermediate"),
+        (nv, vh, vi, 1, lv + lc, "visual output"),
+        (nv, bh, vh, 1, 3 * lc, "bridge visual q/k/v"),
+        (nt, bh, h, 1, 3 * lc, "bridge text q/k/v"),
+        (nv, vh, bh, 1, lc, "biOutput.dense1"),
+        (nt, h, bh, 1, lc, "biOutput.dense2"),
+        (nv, vh, mcfg.v_feature_size, 1, 1, "image_embeddings"),
+        (nv, vh, 5, 1, 1, "image_location_embeddings"),
+        (rows, bh, h, 1, 1, "t_pooler"),
+        (rows, bh, vh, 1, 1, "v_pooler"),
+        (rows, 2 * 2 * bh, bh, 1, 1, "VQA/GQA dense1 (columns of both)"),
+        (rows, wl, 2 * bh, 2, 1, "VQA/GQA dense2 (a batch of two)"),
+        (rows, 4, bh, 1, 1, "pooled heads (vil_logit + tri)"),
+        (nv, 1, vh, 1, 1, "vision_logit"),
+        (nt, 1, h, 1, 1, "linguisic_logit"),
+    ]
+    if rows % 2 == 0:
+        out += [(rows // 2, 2 * bh, 2 * bh, 1, 1, "NLVR2 dense1"),
+                (rows // 2, 2, 2 * bh, 1, 1, "NLVR2 dense2")]
+    return out
+
+
+def int8_launches_per_forward(mcfg, rows: int) -> int:
+    return sum(s[4] for s in int8_forward_shapes(mcfg, rows))
+
+
+# Edge shapes (M, N, K, batch, what): M off the 64-row tiles, N = 1, 3, 4
+# and 3129, K = 5 (the element-wise x path), K off the 64-deep tiles.
+INT8_EDGES = [
+    (1, 768, 768, 1, "M = 1"),
+    (15, 1024, 1024, 1, "M = 15"),
+    (17, 3129, 2048, 2, "M = 17, N = 3129, a batch of two"),
+    (17, 3, 1024, 1, "N = 3"),
+    (15, 4, 1024, 1, "N = 4"),
+    (1, 1, 768, 1, "M = 1, N = 1"),
+    (1, 1024, 5, 1, "M = 1, K = 5"),
+    (203, 1024, 5, 1, "K = 5, M = 203"),
+    (17, 100, 1000, 1, "K = 1000 (ragged tile)"),
+    (3, 33, 37, 1, "K = 37 (element-wise x, padded rows)"),
+]
+
+
+def int8_operands(torch, gen, M, N, K, batch, dtype, round_scale: bool):
+    """Seeded operands on the card: x ~ N(0, 1), q uniform in [-127, 127]
+    with a zero row, scales so that |W| <= ~1.5 / sqrt(K) (outputs of
+    order 1), a bias of order 0.02; the scale rounded to bf16 as the trunk
+    passes it, or raw as the head slabs do."""
+    from vilbert_multitask_tpu_torch.ops.int8_linear import padded_rows
+
+    lead = (batch,) if batch > 1 else ()
+    x = torch.randn(*lead, M, K, generator=gen)
+    q = torch.randint(-127, 128, (*lead, N, K), generator=gen,
+                      dtype=torch.int8)
+    q[..., 0, :] = 0
+    s = (0.5 + torch.rand(*lead, N, generator=gen)) / (127 * K ** 0.5)
+    if round_scale:
+        s = s.to(torch.bfloat16).float()
+    b = 0.02 * torch.randn(*lead, N, generator=gen)
+    dev = torch.device("cuda")
+    return (x.to(dev, dtype), padded_rows(q.to(dev)), s.to(dev),
+            b.to(dev, dtype))
+
+
+def int8_bound_parts(M, N, K, batch, itemsize) -> tuple:
+    """(ms to move the bytes, ms for the operations) of one call: q once
+    (int8), the scales (f32) and bias once, x read once and y written once,
+    over the HBM rate; 2·M·N·K operations at the bf16 tensor-core peak
+    (itemsize 2) or the f32 CUDA-core peak."""
+    n_bytes = batch * (N * K + 4 * N + itemsize * N + itemsize * M * K
+                       + itemsize * M * N)
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    return (n_bytes / PEAK_BYTES_PER_S * 1e3,
+            2 * M * N * K * batch / peak * 1e3)
+
+
+def check_int8_linear(torch, report: dict, mcfg) -> dict:
+    """K1 against its plain version on the card: bf16 within atol 1e-2 +
+    rtol 1e-2, f32 within 2e-5 x max(1, |ref|), at every (N, K) of the
+    full-width forward at M = 38·{1, 32} and 101·{1, 32}, at the shapes of
+    a bucket-1 and a bucket-32 forward, and at the edges; a strided x (the
+    poolers' first token, the label pair's head axis). Per timed shape the
+    kernel's device time, the plain version's, ``F.linear`` on the
+    pre-dequantized bf16 weight (cuBLAS reading twice the weight bytes:
+    the bf16 engine's own product) and ``aten._weight_int8pack_mm`` where
+    this PyTorch runs it on CUDA, and the bound. Returns {(M, N, K, batch):
+    row} of the timed shapes."""
+    import torch.nn.functional as F
+
+    from vilbert_multitask_tpu_torch.ops.int8_linear import (
+        int8_linear,
+        int8_linear_plain,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    timed = {}
+    for rows in (1, 32):
+        for M, N, K, batch, _, what in int8_forward_shapes(mcfg, rows):
+            timed.setdefault((M, N, K, batch), f"{what}, bucket {rows}")
+    nk = sorted({(N, K, batch) for _, N, K, batch, _, _ in
+                 int8_forward_shapes(mcfg, 2)})
+    for M in (38, 101, 38 * 32, 101 * 32):
+        for N, K, batch in nk:
+            timed.setdefault((M, N, K, batch), "table shape")
+    cases = [(M, N, K, b, what, True) for (M, N, K, b), what in timed.items()]
+    cases += [(M, N, K, b, what, False) for M, N, K, b, what in INT8_EDGES]
+    pack_mm = getattr(torch.ops.aten, "_weight_int8pack_mm", None)
+    pack_mm_ok = None
+    rows_out, by_shape = [], {}
+    for i, (M, N, K, batch, what, time_it) in enumerate(cases):
+        round_scale = i % 2 == 0
+        x16, q, s, b16 = int8_operands(torch, gen, M, N, K, batch,
+                                       torch.bfloat16, round_scale)
+        x32, b32 = x16.float(), b16.float()
+        ref16 = int8_linear_plain(x16, q, s, b16).float()
+        out16 = int8_linear(x16, q, s, b16).float()
+        ref32 = int8_linear_plain(x32, q, s, b32)
+        out32 = int8_linear(x32, q, s, b32)
+        torch.cuda.synchronize()
+        err16, used16 = bf16_check(out16, ref16)
+        d32 = (out32 - ref32).abs()
+        err32 = d32.max().item()
+        used32 = (d32 / (F32_TOL * ref32.abs().clamp_min(1.0))).max().item()
+        row = dict(M=M, N=N, K=K, batch=batch, what=what,
+                   scale_rounded_to_bf16=round_scale,
+                   max_abs_err_bf16=err16, tol_used_bf16=used16,
+                   bit_equal_bf16=bool(err16 == 0.0),
+                   max_abs_err_f32=err32, tol_used_f32=used32)
+        if time_it:
+            w16 = (q.float() * s.unsqueeze(-1)).to(torch.bfloat16)
+            fns = dict(
+                kernel=lambda: int8_linear(x16, q, s, b16),
+                plain=lambda: int8_linear_plain(x16, q, s, b16),
+                library=lambda: torch.baddbmm(
+                    b16.unsqueeze(-2), x16, w16.transpose(-1, -2))
+                if batch > 1 else F.linear(x16, w16, b16))
+            if (pack_mm is not None and batch == 1 and K % 32 == 0
+                    and N % 8 == 0 and pack_mm_ok is not False):
+                s16 = s.to(torch.bfloat16)
+                qc = q.contiguous()
+                try:  # a yardstick only: the port never calls it
+                    pack_mm(x16, qc, s16)
+                    torch.cuda.synchronize()
+                    pack_mm_ok = True
+                except (RuntimeError, NotImplementedError) as e:
+                    pack_mm_ok = False
+                    report["int8pack_mm_error"] = str(e)[:300]
+                if pack_mm_ok:
+                    fns["int8pack_mm"] = lambda: pack_mm(x16, qc, s16)
+            for name, fn in fns.items():
+                row[f"{name}_ms"] = device_ms(fn, reps=9, inner=5)
+            row["kernel_f32_ms"] = device_ms(
+                lambda: int8_linear(x32, q, s, b32), reps=5, inner=2)
+            row["bound_bytes_ms"], row["bound_ops_ms"] = int8_bound_parts(
+                M, N, K, batch, 2)
+            row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_ops_ms"])
+            row["bound_by"] = ("bytes" if row["bound_bytes_ms"]
+                               >= row["bound_ops_ms"] else "operations")
+            by_shape[(M, N, K, batch)] = row
+        rows_out.append(row)
+        log("int8_linear M=%d N=%d K=%d batch=%d (%s): err_bf16=%.3e (%.2f "
+            "of tol%s) err_f32=%.3e (%.2f of tol)%s" % (
+                M, N, K, batch, what, err16, used16,
+                ", bit-equal" if err16 == 0.0 else "", err32, used32,
+                "" if not time_it else
+                " | kernel_ms=%.5f plain_ms=%.5f library_ms=%.5f%s "
+                "f32_kernel_ms=%.5f bound_ms=%.6f (%s)" % (
+                    row["kernel_ms"], row["plain_ms"], row["library_ms"],
+                    " int8pack_mm_ms=%.5f" % row["int8pack_mm_ms"]
+                    if "int8pack_mm_ms" in row else "",
+                    row["kernel_f32_ms"], row["bound_ms"], row["bound_by"])))
+        if not used16 <= 1.0:
+            raise AssertionError(
+                f"int8_linear bf16 error {err16:.3e} beyond atol {BF16_ATOL}"
+                f" + rtol {BF16_RTOL} at {(M, N, K, batch)} ({what})")
+        if not used32 <= 1.0:
+            raise AssertionError(
+                f"int8_linear f32 error {err32:.3e} beyond {F32_TOL} x "
+                f"max(1, |ref|) at {(M, N, K, batch)} ({what})")
+    # Strided x: the poolers read the first token of each row in place,
+    # the label pair's dense2 reads each head's rows through a transpose.
+    x16, q, s, b16 = int8_operands(torch, gen, 4, 1024, 768, 1,
+                                   torch.bfloat16, True)
+    seq = torch.randn(4, 38, 768, generator=gen).to("cuda", torch.bfloat16)
+    first = seq[:, 0]
+    xq, qq, sq, bq = int8_operands(torch, gen, 5, 3129, 2048, 2,
+                                   torch.bfloat16, False)
+    h = torch.randn(5, 2, 2048, generator=gen).to("cuda", torch.bfloat16)
+    strided = {}
+    for what, args in (("pooler first token", (first, q, s, b16)),
+                       ("label pair through a transpose",
+                        (h.transpose(0, 1), qq, sq, bq))):
+        err, used = bf16_check(int8_linear(*args).float(),
+                               int8_linear_plain(
+                                   args[0].contiguous(), *args[1:]).float())
+        log(f"int8_linear strided x ({what}): max abs err {err:.3e} "
+            f"({used:.2f} of tol)")
+        if not used <= 1.0:
+            raise AssertionError(f"int8_linear strided ({what}) error {err}")
+        strided[what] = err
+    report["int8_linear_shapes"] = rows_out
+    report["int8_linear_strided_err"] = strided
+    report["int8pack_mm_on_cuda"] = pack_mm_ok
+    return by_shape
 
 
 # ------------------------------------------------------------ phase detect
@@ -1514,6 +1766,324 @@ def check_batched(torch, report: dict, eng) -> int:
     return launches
 
 
+# ------------------------------------------------------------- phase int8
+INT8_VS_BF16 = dict(rtol=0.15, atol=0.15)  # tests/test_engine.py:484
+
+
+def engine_tensor_bytes(torch, eng) -> int:
+    """Bytes of an engine's weights on the card: every parameter and buffer
+    of its model (the int8 rows' padding included) and its head slabs."""
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in (*eng.model.parameters(), *eng.model.buffers(),
+                          *(eng.head_slabs or {}).values())}
+    return sum(storages.values())
+
+
+def serving_numbers(torch, eng, req, vqa) -> dict:
+    """``run()`` at bucket 1 through the graph and eagerly (p50 of 30 warm
+    runs each) and ``run_many`` rows/s over ``vqa`` in 32-row chunks
+    (median of 5), as phase 6 measures them."""
+    out = {}
+    for mode in ("graph", "eager"):
+        saved = eng._graphs
+        if mode == "eager":
+            eng._graphs = {}
+        try:
+            for _ in range(5):
+                eng.run(req)
+            times = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                eng.run(req)
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            eng._graphs = saved
+        out[f"run_ms_{mode}"] = {"p50": statistics.median(times),
+                                 "min": min(times)}
+    eng.run_many(vqa, chunk_rows=32)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.run_many(vqa, chunk_rows=32)
+        rates.append(len(vqa) / (time.perf_counter() - t0))
+    out["rows_per_s_32"] = {"median": statistics.median(rates),
+                            "min": min(rates), "max": max(rates)}
+    return out
+
+
+def check_int8(torch, report: dict, eng, root: str, state: str):
+    """The slice's main path at full width: an int8 engine restored from a
+    checkpoint of this package, driven through ``predict`` (launch counts
+    per forward), held against a CPU-f32 int8 engine on the same quantized
+    tree and against phase 4's bf16 engine, its graphs against eager, its
+    weights' device memory, run()/run_many against the bf16 engine in
+    turns, and a rolling swap of an f32 checkpoint. Returns the int8
+    engine's predict launches."""
+    import dataclasses
+
+    from vilbert_multitask_tpu_torch import quant
+    from vilbert_multitask_tpu_torch.checkpoint import (
+        restore_params,
+        save_params,
+    )
+    from vilbert_multitask_tpu_torch.config import TASK_REGISTRY
+    from vilbert_multitask_tpu_torch.engine.runtime import (
+        InferenceEngine,
+        init_state_dict,
+    )
+    from vilbert_multitask_tpu_torch.ops.coattention import (
+        flash_cross_attention,
+    )
+    from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
+    from vilbert_multitask_tpu_torch.serve.app import ServeApp
+
+    cfg = dataclasses.replace(eng.cfg, engine=dataclasses.replace(
+        eng.cfg.engine, param_dtype="int8"))
+    weights = init_state_dict(cfg.model, seed=0)  # phase 4's weights
+    ckpt = os.path.join(state, "int8_ckpt")
+    t0 = time.perf_counter()
+    save_params(ckpt, weights)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = restore_params(ckpt, dtype="int8", cfg=cfg.model)
+    restore_s = time.perf_counter() - t0
+    if not quant.tree_is_quantized(restored):
+        raise AssertionError("restore_params(dtype='int8') kept f32 leaves")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng8 = InferenceEngine(cfg, params=restored,
+                           feature_store=eng.feature_store, device="cuda")
+    torch.cuda.synchronize()
+    int8_alloc = torch.cuda.memory_allocated() - before
+    before = torch.cuda.memory_allocated()
+    bf16_again = InferenceEngine(eng.cfg, params=weights,
+                                 feature_store=eng.feature_store,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    bf16_alloc = torch.cuda.memory_allocated() - before
+    memory = {"int8_alloc_bytes": int8_alloc, "bf16_alloc_bytes": bf16_alloc,
+              "int8_tensor_bytes": engine_tensor_bytes(torch, eng8),
+              "bf16_tensor_bytes": engine_tensor_bytes(torch, bf16_again)}
+    del bf16_again
+    log(f"int8: checkpoint saved in {save_s:.1f}s, restored and quantized "
+        f"on the host in {restore_s:.1f}s; weights on the card: int8 "
+        f"{int8_alloc / 2**20:.1f} MiB allocated ({memory['int8_tensor_bytes'] / 2**20:.1f} "
+        f"MiB of tensors) against bf16 {bf16_alloc / 2**20:.1f} MiB "
+        f"({memory['bf16_tensor_bytes'] / 2**20:.1f} MiB)")
+
+    # The main path of this slice: predict() on the int8 engine, the
+    # counts zeroed just before each request and read just after.
+    launches = {"int8_linear": 0, "flash_attn": 0}
+    for task_id, question, keys in REQUESTS:
+        spec = TASK_REGISTRY[task_id]
+        bucket = cfg.engine.bucket_for(len(keys)) if len(keys) > 1 else 1
+        want = int8_launches_per_forward(cfg.model, bucket)
+        int8_linear.launches = flash_cross_attention.launches = 0
+        result = eng8.predict(task_id, question, keys)
+        torch.cuda.synchronize()
+        n8, nf = int8_linear.launches, flash_cross_attention.launches
+        launches["int8_linear"] += n8
+        launches["flash_attn"] += nf
+        check_result(spec, result, len(keys))
+        log(f"int8 predict task {task_id} ({spec.name}, bucket {bucket}): "
+            f"{n8} int8_linear + {nf} flash_attn launches -> "
+            f"{json.dumps(result.to_json())[:120]}")
+        if n8 != want or nf != LAUNCHES_PER_FORWARD:
+            raise AssertionError(
+                f"int8 task {task_id}: {n8} int8_linear launches (want "
+                f"{want}), {nf} flash_attn (want {LAUNCHES_PER_FORWARD})")
+
+    # Bundles: against a CPU-f32 int8 engine on the same quantized tree,
+    # and against phase 4's bf16 engine.
+    f32 = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, compute_dtype="float32"))
+    cpu8 = InferenceEngine(f32, params=restored,
+                           feature_store=eng.feature_store, device="cpu")
+    worst = {"int8_card_vs_int8_f32_cpu": (0.0, 0.0),
+             "int8_card_vs_bf16_card": (0.0, 0.0)}
+    for task_id, question, keys in REQUESTS:
+        got = eng8.bundle(eng8.prepare_from_store(task_id, question,
+                                                  keys))[1]
+        for key, ref_eng, tol in (
+                ("int8_card_vs_int8_f32_cpu", cpu8, BUNDLE_BF16),
+                ("int8_card_vs_bf16_card", eng, INT8_VS_BF16)):
+            ref = ref_eng.bundle(ref_eng.prepare_from_store(
+                task_id, question, keys))[1]
+            err, used = compare_bundles(ref, got, tol,
+                                        f"int8 task {task_id} {key}")
+            worst[key] = (max(worst[key][0], err), max(worst[key][1], used))
+    del cpu8
+    log("int8 bundles: " + "; ".join(
+        f"{k} max abs err {e:.3e} ({u:.2f} of tol)"
+        for k, (e, u) in worst.items()))
+
+    # Graphs: capture every bucket, replay against eager.
+    t0 = time.perf_counter()
+    eng8.warmup()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay = {}
+    for b in cfg.engine.all_row_buckets():
+        reqs = [eng8.prepare_from_store(t, q, imgs)
+                for t, q, imgs in graph_rows(b)]
+        graph_bundle = eng8._dispatch_many(reqs).fetch()
+        saved, eng8._graphs = eng8._graphs, {}
+        try:
+            eager_bundle = eng8._dispatch_many(reqs).fetch()
+        finally:
+            eng8._graphs = saved
+        diff, _ = compare_bundles(eager_bundle, graph_bundle, BUNDLE_BF16,
+                                  f"int8 bucket {b} graph vs eager")
+        per_replay = {w.__name__: n
+                      for w, n in eng8._graphs[b].launches.items()}
+        replay[b] = {"max_abs_diff": diff, "launches_per_replay": per_replay}
+        if per_replay.get("int8_linear") != int8_launches_per_forward(
+                cfg.model, b):
+            raise AssertionError(f"int8 bucket {b} graph records "
+                                 f"{per_replay} launches")
+    log(f"int8 graphs: {len(replay)} buckets captured in {capture_s:.2f}s; "
+        "replay vs eager max abs diff " + ", ".join(
+            f"b{b} {r['max_abs_diff']:.3e}" for b, r in replay.items())
+        + f"; launches per bucket-1 replay {replay[1]['launches_per_replay']}")
+
+    # run() and run_many, int8 and bf16 in turns (host-bound walls move
+    # between calls): bf16, int8, int8, bf16.
+    req = {e: e.prepare_from_store(1, REQUESTS[0][1], REQUESTS[0][2])
+           for e in (eng, eng8)}
+    vqa = {e: [e.prepare_from_store(1, f"what colour is it {k}",
+                                    [f"img_{k % 8}"]) for k in range(96)]
+           for e in (eng, eng8)}
+    turns = []
+    for name, e in (("bf16", eng), ("int8", eng8), ("int8", eng8),
+                    ("bf16", eng)):
+        nums = serving_numbers(torch, e, req[e], vqa[e])
+        turns.append({"engine": name, **nums})
+        log(f"int8 vs bf16, turn {len(turns)} ({name}): run() p50 "
+            f"{nums['run_ms_graph']['p50']:.3f} ms through the graph, "
+            f"{nums['run_ms_eager']['p50']:.3f} ms eagerly; run_many "
+            f"{nums['rows_per_s_32']['median']:.1f} rows/s at 32-row chunks"
+            f" on {report['device']['nvidia_smi']}")
+
+    # Top-1 answers int8 changes against bf16 on the seeded set.
+    res16 = eng.run_many(vqa[eng])
+    res8 = eng8.run_many(vqa[eng8])
+    changed = sum(a.answers[0]["answer"] != b.answers[0]["answer"]
+                  for a, b in zip(res16, res8))
+    log(f"int8: {changed} of {len(res8)} seeded VQA top-1 answers differ "
+        f"from the bf16 engine's (random weights: a count, not a claim)")
+
+    # A rolling swap of an f32 checkpoint re-quantizes it: the same
+    # tensors, the same answers.
+    served = {k: quant.leaf_to(v, "cpu") for k, v in
+              eng8.state_dict().items()}
+    answers = [eng8.predict(t, q, k).to_json() for t, q, k in REQUESTS]
+    swap_cfg = dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, queue_db_path=os.path.join(state, "int8_q.sqlite3"),
+        results_db_path=os.path.join(state, "int8_r.sqlite3"),
+        media_root=os.path.join(state, "int8_media"), http_port=0,
+        ws_port=0))
+    app = ServeApp(swap_cfg, engine=eng8, device="cuda")
+    try:
+        swap = app.rolling_swap(checkpoint_path=ckpt)
+    finally:
+        app.stop()
+    after = eng8.state_dict()
+    for key, v in served.items():
+        now = quant.leaf_to(after[key], "cpu")
+        same = (all(torch.equal(now[p], v[p]) for p in v)
+                if quant.is_quantized_leaf(v) else torch.equal(now, v))
+        if not same:
+            raise AssertionError(f"rolling swap changed {key}")
+    if [eng8.predict(t, q, k).to_json() for t, q, k in REQUESTS] != answers:
+        raise AssertionError("int8 answers changed across the swap")
+    log(f"int8: rolling_swap of the f32 checkpoint re-quantized it in "
+        f"{swap['total_s']:.2f}s; the same int8 tensors and answers")
+    report["int8"] = {
+        "launches": launches, "save_s": save_s, "restore_s": restore_s,
+        "memory": memory,
+        "bundle_max_abs_err": {k: v[0] for k, v in worst.items()},
+        "bundle_tol_used": {k: v[1] for k, v in worst.items()},
+        "graphs": {"capture_s": capture_s, "buckets": replay},
+        "turns": turns, "top1_changed_vs_bf16": changed,
+        "top1_compared": len(res8), "swap_s": swap["total_s"]}
+    del eng8
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -------------------------------------------------------------- phase cli
+def check_cli_entry_points(torch, report: dict, eng, root: str,
+                           state: str) -> None:
+    """The eval harness and the onboarding CLI, each in a process of its
+    own on the card: the harness on seeded VQA data over phase 4's feature
+    files prints the scores the in-process Evaluator gives on phase 4's
+    bf16 engine (the same seed-0 weights); onboarding converts a seeded
+    upstream-layout .bin, boots, smokes and holds that score."""
+    from vilbert_multitask_tpu_torch import assets
+    from vilbert_multitask_tpu_torch.engine.runtime import init_state_dict
+    from vilbert_multitask_tpu_torch.evals import Evaluator
+
+    # Seeded VQA data: every other example's answers are the engine's own
+    # top-1 (full credit), the rest a string it never answers.
+    examples = []
+    for k in range(16):
+        image = f"img_{k % 8}"
+        question = f"what is shown in picture {k}"
+        pred = eng.predict(1, question, [image]).answers[0]["answer"]
+        examples.append({"question": question, "image": image,
+                         "answers": [pred if k % 2 == 0 else "nothing"] * 10})
+    data = os.path.join(state, "vqa_seeded.jsonl")
+    with open(data, "w") as f:
+        f.writelines(json.dumps(e) + "\n" for e in examples)
+    want = Evaluator(eng, batch=8).run("vqa", examples)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+
+    def run(args, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=state,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+    got, eval_s = run(["vilbert_multitask_tpu_torch.evals.harness",
+                       "--task", "vqa", "--data", data, "--features", root],
+                      "evals.harness")
+    if {k: v for k, v in got.items() if k != "wall_s"} != {
+            k: v for k, v in want.items() if k != "wall_s"}:
+        raise AssertionError(f"evals.harness printed {got}, the in-process "
+                             f"Evaluator gave {want}")
+    log(f"cli: python -m vilbert_multitask_tpu_torch.evals.harness --task "
+        f"vqa: {got} in {eval_s:.1f}s, equal to the in-process Evaluator")
+
+    bin_path = os.path.join(state, "pytorch_model_9.bin")
+    torch.save({f"module.{k}": v for k, v in
+                init_state_dict(eng.cfg.model, seed=0).items()}, bin_path)
+    expect = os.path.join(state, "expected.json")
+    with open(expect, "w") as f:
+        json.dump({"vqa": {"accuracy": want["accuracy"]}}, f)
+    onboard, onboard_s = run(
+        ["vilbert_multitask_tpu_torch.checkpoint.onboard", "--torch-bin",
+         bin_path, "--vocab", assets.default_vocab_path(), "--labels",
+         assets.default_labels_root(), "--out",
+         os.path.join(state, "onboarded"), "--eval", f"vqa={data}",
+         "--features", root, "--expect", expect], "checkpoint.onboard")
+    if not onboard["ok"]:
+        raise AssertionError(f"checkpoint.onboard: {onboard}")
+    log(f"cli: python -m vilbert_multitask_tpu_torch.checkpoint.onboard: ok "
+        f"in {onboard_s:.1f}s (steps "
+        f"{ {k: v.get('wall_s') for k, v in onboard['steps'].items()} }, "
+        f"parity {onboard['steps']['parity']['scores']['vqa']['accuracy']})")
+    report["cli"] = {"evals_harness": got, "evals_harness_s": eval_s,
+                     "onboard_steps": onboard["steps"],
+                     "onboard_s": onboard_s}
+
+
 # ---------------------------------------------------------------- phase 7
 SERVED_FAMILIES = (  # (task id, question, images): the six decode families
     (1, "what is the man holding", ["img_0"]),
@@ -2287,6 +2857,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from vilbert_multitask_tpu_torch import _build
+    from vilbert_multitask_tpu_torch.config import ViLBertConfig
 
     report: dict = {}
     # 1. device
@@ -2320,6 +2891,7 @@ def main() -> int:
     by_shape = check_flash_attention(torch, report)
     nms_rows = check_nms(torch, report)
     roi_row = check_roi_align(torch, report)
+    int8_rows = check_int8_linear(torch, report, ViLBertConfig())
     # detect: the full-width detector on seeded images
     detect_launches = check_detect(torch, report)
     with tempfile.TemporaryDirectory() as root, \
@@ -2330,6 +2902,9 @@ def main() -> int:
         check_graphs(torch, report, eng)
         # 6. run_many
         batched_launches = check_batched(torch, report, eng)
+        # int8: the int8 storage mode's main path; cli: its entry points
+        int8_launches = check_int8(torch, report, eng, root, state)
+        check_cli_entry_points(torch, report, eng, root, state)
         # 7. the served path
         served_launches, served_detector = check_served(torch, report, eng,
                                                         root, state)
@@ -2409,6 +2984,48 @@ def main() -> int:
                "channels",
         "notes": {"instantiations": report["build_notes"]["roi_align"]},
     }]}
+    def per_forward(rows: int, key: str) -> float:
+        """A column of the int8_linear rows summed over the launches of one
+        forward of ``rows`` image rows."""
+        return sum(n * int8_rows[(M, N, K, b)][key] for M, N, K, b, n, _ in
+                   int8_forward_shapes(ViLBertConfig(), rows))
+
+    kernels["kernels"].append({
+        "name": "int8_linear",
+        "route": "cuda",
+        "source": "vilbert_multitask_tpu_torch/csrc/int8_linear.cu",
+        "replaces": "vilbert_multitask_tpu/quant.py:94 (dequantize_leaf, "
+                    "fused by XLA into each matmul: engine/runtime.py:"
+                    "684-705; no Pallas kernel)",
+        "launches": int8_launches["int8_linear"],
+        "launches_by_path": {
+            "int8_predict": int8_launches["int8_linear"],
+            "per_forward_bucket_1": int8_launches_per_forward(
+                ViLBertConfig(), 1),
+            "per_forward_bucket_32": int8_launches_per_forward(
+                ViLBertConfig(), 32)},
+        "max_abs_err": max(r["max_abs_err_f32"]
+                           for r in report["int8_linear_shapes"]),
+        "max_abs_err_bf16": max(r["max_abs_err_bf16"]
+                                for r in report["int8_linear_shapes"]),
+        "ms": per_forward(1, "kernel_ms"),
+        "plain_ms": per_forward(1, "plain_ms"),
+        "bound_ms": per_forward(1, "bound_ms"),
+        "bound_by": ("bytes" if per_forward(1, "bound_bytes_ms")
+                     >= per_forward(1, "bound_ops_ms") else "operations"),
+        "library_ms": per_forward(1, "library_ms"),
+        "per": "one bucket-1 forward: 189 bf16 launches (184 trunk Linear, "
+               "5 head products); library = F.linear on the dequantized "
+               "bf16 weights",
+        "notes": {
+            "instantiations": report["build_notes"]["int8_linear"],
+            "bucket_32": {k: per_forward(32, f"{k}_ms") for k in
+                          ("kernel", "plain", "bound", "library")},
+            "max_tol_used_bf16": max(r["tol_used_bf16"]
+                                     for r in report["int8_linear_shapes"]),
+            "int8pack_mm_on_cuda": report["int8pack_mm_on_cuda"],
+        },
+    })
     report.update(kernels)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -24,6 +24,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from vilbert_multitask_tpu_torch import quant
 from vilbert_multitask_tpu_torch.config import ViLBertConfig
 
 # ---------------------------------------------------------------------------
@@ -183,18 +184,65 @@ def _get_path(tree: Dict, path: Tuple[str, ...]):
     return node
 
 
+def _unpack_leaf(unpack, leaf) -> list:
+    """A Flax leaf through its name-map entry's ``unpack``. A quantized
+    ``{"int8", "scale"}`` pair (the JAX package's quant.py; one scale per
+    entry of the kernel's last axis) unpacks its values as the kernel does,
+    and its scale as a one-row kernel, so each torch piece gets the scales
+    of its own output rows."""
+    if quant.is_quantized_leaf(leaf):
+        values = unpack(np.asarray(leaf[quant.QVALUES]))
+        scales = unpack(np.asarray(leaf[quant.QSCALE])[None, :])
+        return [{quant.QVALUES: np.ascontiguousarray(q),
+                 quant.QSCALE: np.ascontiguousarray(s).ravel()}
+                for q, s in zip(values, scales)]
+    return [np.ascontiguousarray(a) for a in unpack(np.asarray(leaf))]
+
+
 def from_flax_params(params: Dict, cfg: ViLBertConfig) -> Dict[str, Arr]:
     """Nested Flax param dict (numpy-valued) → upstream torch state dict of
-    numpy arrays (plus the tied decoder weight torch materializes)."""
+    numpy arrays (plus the tied decoder weight torch materializes). A JAX
+    int8 tree (``{"int8", "scale"}`` pairs) carries across as pairs in this
+    package's layout (quant.py)."""
     out: Dict[str, Arr] = {}
     for flax_path, (torch_keys, _pack, unpack) in build_name_map(cfg):
-        arrs = unpack(np.asarray(_get_path(params, flax_path)))
+        arrs = _unpack_leaf(unpack, _get_path(params, flax_path))
         for k, a in zip(torch_keys, arrs):
-            out[k] = np.ascontiguousarray(a)
+            out[k] = a
     # torch ties cls.predictions.decoder.weight to the embedding table.
-    out["cls.predictions.decoder.weight"] = np.asarray(
-        params["bert"]["embeddings"]["word_embeddings"]["embedding"])
+    out["cls.predictions.decoder.weight"] = out[
+        "bert.embeddings.word_embeddings.weight"]
     return out
+
+
+def read_torch_state_dict(path: str) -> Dict:
+    """A torch file's state dict on the host: CPU-mapped (reference
+    worker.py:83,530-532), ``weights_only=True``, a ``"state_dict"``
+    wrapper unwrapped and a ``module.`` prefix (a DataParallel save)
+    stripped."""
+    import torch
+
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(raw, dict) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in raw.items()}
+
+
+def check_keys(sd: Dict, cfg: ViLBertConfig, path: str) -> None:
+    """Raise ``KeyError`` naming the missing and unexpected keys unless
+    ``sd`` has exactly the upstream keys of the model of ``cfg``."""
+    import torch
+
+    from vilbert_multitask_tpu_torch.models.vilbert import ViLBertForVLTasks
+
+    with torch.device("meta"):
+        want = set(ViLBertForVLTasks(cfg).state_dict())
+    missing, unexpected = sorted(want - set(sd)), sorted(set(sd) - want)
+    if missing or unexpected:
+        raise KeyError(f"{path}: {len(missing)} missing keys (e.g. "
+                       f"{missing[:3]}), {len(unexpected)} unexpected keys "
+                       f"(e.g. {unexpected[:3]}) for this model config")
 
 
 def load_torch_checkpoint(path: str, cfg: ViLBertConfig
@@ -203,28 +251,11 @@ def load_torch_checkpoint(path: str, cfg: ViLBertConfig
     an upstream-layout state dict for ``load_state_dict(strict=True)``.
 
     Counterpart of the JAX package's ``load_torch_checkpoint``
-    (``vilbert_multitask_tpu/checkpoint/convert.py:264``): CPU-mapped
-    (reference worker.py:83,530-532), ``weights_only=True``, a
-    ``"state_dict"`` wrapper unwrapped and a ``module.`` prefix (a
-    DataParallel save) stripped. The module tree is already in this
+    (``vilbert_multitask_tpu/checkpoint/convert.py:264``), through
+    :func:`read_torch_state_dict`. The module tree is already in this
     layout, so no key is renamed: the keys must be exactly the ones the
-    model of ``cfg`` has (raises ``KeyError`` naming the missing and
-    unexpected ones), checked here so that a wrong file fails before any
-    replica of a rolling swap is drained for it."""
-    import torch
-
-    from vilbert_multitask_tpu_torch.models.vilbert import ViLBertForVLTasks
-
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(raw, dict) and "state_dict" in raw:
-        raw = raw["state_dict"]
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v
-          for k, v in raw.items()}
-    with torch.device("meta"):
-        want = set(ViLBertForVLTasks(cfg).state_dict())
-    missing, unexpected = sorted(want - set(sd)), sorted(set(sd) - want)
-    if missing or unexpected:
-        raise KeyError(f"{path}: {len(missing)} missing keys (e.g. "
-                       f"{missing[:3]}), {len(unexpected)} unexpected keys "
-                       f"(e.g. {unexpected[:3]}) for this model config")
+    model of ``cfg`` has (:func:`check_keys`), checked here so that a wrong
+    file fails before any replica of a rolling swap is drained for it."""
+    sd = read_torch_state_dict(path)
+    check_keys(sd, cfg, path)
     return sd

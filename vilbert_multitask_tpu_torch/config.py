@@ -225,9 +225,8 @@ SNLI_VE_LABELS = ("contradiction (false)", "neutral", "entailment (true)")  # wo
 class EngineConfig:
     """The inference-engine fields the port reads (a subset of the JAX
     package's EngineConfig, same names and defaults). Left out: the knobs
-    only JAX reads (``param_dtype`` until int8 is ported, the XLA
-    compilation and AOT caches, ``parallel_warmup``, ``ring_min_regions``
-    and the mesh)."""
+    only JAX reads (the XLA compilation and AOT caches,
+    ``parallel_warmup``, ``ring_min_regions`` and the mesh)."""
 
     max_text_len: int = 37  # wordpiece tokens incl. [CLS]/[SEP] (worker.py:408)
     max_regions: int = 101  # 100 detector boxes + 1 global feature (worker.py:71,433)
@@ -242,6 +241,14 @@ class EngineConfig:
     # max(image_buckets).
     throughput_buckets: Sequence[int] | None = (16, 32)
     compute_dtype: str = "bfloat16"
+    # Storage of the served weights: a floating dtype or "int8". A floating
+    # value keeps Linear/Embedding weights in the compute dtype and
+    # LayerNorm parameters in f32 (the engine casts once at load). "int8"
+    # stores every matrix as a per-channel {"int8", "scale"} pair (quant.py;
+    # checkpoints are quantized host-side at restore) and every Linear runs
+    # the int8 GEMM (ops/int8_linear.py), which dequantizes inside the
+    # product; the fused head slabs are int8 too.
+    param_dtype: str = "float32"
     # Run the nine per-task decode heads as ONE batched program (stacked
     # weight slabs + a per-row gather by task id) instead of nine small
     # matmuls. Off → the per-head module path, which the tests hold it to.
@@ -546,6 +553,10 @@ class ServingConfig:
     autoscale_decision_history: int = 128
 
 
+# The storage modes EngineConfig.param_dtype takes.
+PARAM_DTYPES = ("float16", "bfloat16", "float32", "float64", "int8")
+
+
 def _known(cls, raw: Mapping[str, Any]) -> dict:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: (tuple(v) if isinstance(v, list) else v)
@@ -579,3 +590,32 @@ def config_fingerprint(cfg: FrameworkConfig) -> str:
 
     blob = json.dumps(dataclasses.asdict(cfg), sort_keys=True, default=repr)
     return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def add_backend_args(parser) -> None:
+    """The shared --tiny/--cpu CLI knobs of the eval harness and the
+    onboarding CLI (the JAX package's ``add_backend_args``)."""
+    parser.add_argument("--tiny", action="store_true",
+                        help="tiny model config (rehearsal/tests; must "
+                             "match any checkpoint being loaded)")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU (f32, dense attention, the "
+                             "plain versions of the kernels)")
+
+
+def apply_backend_args(cfg: FrameworkConfig, args) -> FrameworkConfig:
+    """Apply add_backend_args selections: --cpu means f32 compute and dense
+    attention (the engine then runs on ``backend_device(args)``, the CPU);
+    --tiny the tiny model."""
+    if getattr(args, "cpu", False):
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, compute_dtype="float32",
+            use_pallas_coattention=False, use_pallas_self_attention=False))
+    if getattr(args, "tiny", False):
+        cfg = dataclasses.replace(cfg, model=cfg.model.tiny())
+    return cfg
+
+
+def backend_device(args) -> str:
+    """The engine device the backend args select: the card unless --cpu."""
+    return "cpu" if getattr(args, "cpu", False) else "cuda"

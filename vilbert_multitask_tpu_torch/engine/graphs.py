@@ -11,7 +11,8 @@ host call.
 
 What is captured, for one bucket (:meth:`InferenceEngine._rows_step`):
 the gather of the request's image rows from the device row slab by a slot
-vector, the trunk (including the hand-written flash kernel's 18 launches),
+vector, the trunk (including the hand-written flash kernel's 18 launches and,
+in the int8 storage mode, the int8 GEMM's),
 the fused heads, and the softmax/top-3 decode bundle flattened into one
 f32 tensor. The inputs are one static ``(bucket, 3·Nt + 2)`` int64 pack
 (text ids, segment ids, text mask, task id, slab slot per row); the slab,
@@ -53,10 +54,11 @@ import torch
 
 from vilbert_multitask_tpu_torch.detect.model import roi_align
 from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
+from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
 from vilbert_multitask_tpu_torch.ops.nms import nms_mask
 
 # Every hand-written kernel's wrapper (each carries a ``launches`` count).
-KERNEL_WRAPPERS = (flash_cross_attention, nms_mask, roi_align)
+KERNEL_WRAPPERS = (flash_cross_attention, nms_mask, roi_align, int8_linear)
 
 
 @dataclasses.dataclass

@@ -44,11 +44,20 @@ numpy), :meth:`~InferenceEngine.predict` and :meth:`~InferenceEngine.warmup`.
   pinned host memory right behind the replay. ``collect_attention=True``
   runs eagerly (the JAX package compiles it as a separate program), as
   does an engine that was not warmed.
-- **Weights.** Linear and Embedding weights are stored in the compute
-  dtype. Flax's ``Dense(dtype=bf16)`` over f32 parameters casts the
-  kernel, the bias and the input to bf16 before the product on every call,
-  so the one cast at load is bit-equivalent. LayerNorm parameters stay f32,
-  as flax's ``LayerNorm(dtype=bf16)`` uses them (statistics in f32).
+- **Weights.** With a floating ``EngineConfig.param_dtype`` (the
+  default), Linear and Embedding weights are stored in the compute dtype.
+  Flax's ``Dense(dtype=bf16)`` over f32 parameters casts the kernel, the
+  bias and the input to bf16 before the product on every call, so the one
+  cast at load is bit-equivalent. LayerNorm parameters stay f32, as flax's
+  ``LayerNorm(dtype=bf16)`` uses them (statistics in f32).
+  ``param_dtype="int8"`` is the int8 storage mode (models/int8.py): every
+  matrix is an int8 ``{"int8", "scale"}`` pair quantized on the host at
+  load (quant.py), every Linear of the trunk and every product of the fused
+  heads runs the hand-written int8 GEMM (ops/int8_linear.py), and the
+  numerics are the JAX int8 engine's (its forward computes with
+  ``dequantize_tree(params, compute_dtype)``: the trunk's vectors,
+  LayerNorm parameters included, rounded to the compute dtype; the head
+  slabs dequantized in f32, ``_make_head_slab_builder``).
   :meth:`~InferenceEngine.load_params` copies into the existing tensors,
   so captured graphs stay valid across a swap.
 - **Shapes.** Text is always ``max_text_len`` (37, +1 task token) and
@@ -57,8 +66,7 @@ numpy), :meth:`~InferenceEngine.predict` and :meth:`~InferenceEngine.warmup`.
   (``run_many``). NLVR2 pairs and retrieval candidates score in one
   forward with the question replicated per image row.
 
-Not in this package yet: meshes, int8 storage, checkpoint restore
-(ROADMAP A5, A6, A11).
+Not in this package yet: meshes (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -75,8 +83,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from vilbert_multitask_tpu_torch import assets, obs
+from vilbert_multitask_tpu_torch import assets, obs, quant
 from vilbert_multitask_tpu_torch.config import (
+    PARAM_DTYPES,
     TASK_REGISTRY,
     FrameworkConfig,
     TaskSpec,
@@ -93,7 +102,11 @@ from vilbert_multitask_tpu_torch.features.pipeline import (
     encode_image,
 )
 from vilbert_multitask_tpu_torch.features.store import FeatureStore
-from vilbert_multitask_tpu_torch.models.heads import build_head_slabs
+from vilbert_multitask_tpu_torch.models.heads import (
+    build_head_slabs,
+    build_int8_head_slabs,
+)
+from vilbert_multitask_tpu_torch.models.int8 import quantize_modules
 from vilbert_multitask_tpu_torch.models.vilbert import (
     ViLBertForVLTasks,
     ViLBertOutput,
@@ -311,6 +324,12 @@ class InferenceEngine:
         if ecfg.compute_dtype not in _DTYPES:
             raise ValueError(f"unsupported compute_dtype {ecfg.compute_dtype}")
         self.compute_dtype = _DTYPES[ecfg.compute_dtype]
+        # Storage of the served weights: a floating dtype keeps them in the
+        # compute dtype, "int8" quantizes them (see the module docstring).
+        if ecfg.param_dtype not in PARAM_DTYPES:
+            raise ValueError(f"engine.param_dtype must be a floating dtype "
+                             f"or 'int8', got {ecfg.param_dtype!r}")
+        self.param_quantized = ecfg.param_dtype == "int8"
         # Engine kernel knobs win over the model config, unconditionally.
         self.model_config = dataclasses.replace(
             self.cfg.model,
@@ -370,15 +389,19 @@ class InferenceEngine:
         self._graphs: Dict[int, graphs.BucketGraph] = {}
         self._graph_pool = None
         # Built on the meta device (no allocation, no init kernels), then
-        # given storage once: Linear/Embedding weights in the compute
-        # dtype, the rest f32. load_params copies into these tensors.
+        # given storage once: Linear/Embedding weights in the compute dtype
+        # (or their int8 forms), the rest f32. load_params copies into
+        # these tensors.
         t_up = time.perf_counter()
         with torch.device("meta"):
             self.model = ViLBertForVLTasks(self.model_config)
+            if self.param_quantized:
+                quantize_modules(self.model, self.compute_dtype)
         self.model.to_empty(device=self.device)
-        for mod in self.model.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.to(self.compute_dtype)
+        if not self.param_quantized:
+            for mod in self.model.modules():
+                if isinstance(mod, (nn.Linear, nn.Embedding)):
+                    mod.to(self.compute_dtype)
         self.model.eval().requires_grad_(False)
         self.head_slabs: Optional[Dict[str, torch.Tensor]] = None
         self.load_params(self.init_params(seed) if params is None else params)
@@ -414,15 +437,27 @@ class InferenceEngine:
         model's existing tensors (each value is cast to its parameter's
         dtype on the copy, as a cast at load would), and rebuild the fused
         head slabs into theirs: the captured graphs read those addresses.
+        An int8 engine quantizes an f32 tree on the host first
+        (``quant.quantize_tree``) and takes an already-quantized one as it
+        is; a floating engine refuses a quantized tree.
         The copies go on the engine stream behind any dispatch already
         enqueued there, and only that stream is waited on: other engines
         on the card keep running (and may be capturing) meanwhile."""
-        sd = {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
-              for k, v in params.items()}
+        sd = {k: quant.leaf_to(v) for k, v in params.items()}
+        if self.param_quantized:
+            sd = quant.quantize_tree(sd)
+        elif quant.tree_is_quantized(sd):
+            raise ValueError("a quantized (int8) state dict needs "
+                             "EngineConfig.param_dtype='int8'")
         with self._dispatch_lock, torch.no_grad(), self._stream_ctx():
             self.model.load_state_dict(sd, strict=True)
-            slabs = (build_head_slabs(self.model, self.model_config)
-                     if self.cfg.engine.fused_task_heads else None)
+            slabs = None
+            if self.cfg.engine.fused_task_heads:
+                slabs = (build_int8_head_slabs(sd, self.model_config,
+                                               self.compute_dtype,
+                                               self.device)
+                         if self.param_quantized else
+                         build_head_slabs(self.model, self.model_config))
             if self.head_slabs is None or slabs is None:
                 self.head_slabs = slabs
             else:
@@ -430,6 +465,12 @@ class InferenceEngine:
                     t.copy_(slabs[name])
             if self._stream is not None:
                 self._stream.synchronize()
+
+    def state_dict(self) -> Dict:
+        """The served weights as an upstream-key state dict of the engine's
+        own tensors: ``{"int8", "scale"}`` pairs and f32 vectors on an int8
+        engine (``load_params`` takes it back unchanged)."""
+        return self.model.state_dict()
 
     def book_boot_time(self, phase: str, seconds: float) -> None:
         """Accumulate one boot-phase duration (upload_s / compile_s);

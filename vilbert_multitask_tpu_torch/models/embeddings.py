@@ -18,7 +18,10 @@ import torch
 from torch import nn
 
 from vilbert_multitask_tpu_torch.config import ViLBertConfig
-from vilbert_multitask_tpu_torch.models.layers import LayerNorm
+from vilbert_multitask_tpu_torch.models.layers import (
+    LayerNorm,
+    compute_dtype,
+)
 
 
 class TextEmbeddings(nn.Module):
@@ -70,7 +73,7 @@ class ImageEmbeddings(nn.Module):
     def forward(self, features, spatials):
         """features: (B, Nv, v_feature_size); spatials: (B, Nv, 5). Both are
         cast to the compute dtype (the weights' dtype) first."""
-        dt = self.image_embeddings.weight.dtype
+        dt = compute_dtype(self.image_embeddings)
         feat = self.image_embeddings(features.to(dt))
         loc = self.image_location_embeddings(spatials.to(dt))
         return self.dropout(self.LayerNorm(feat + loc))

@@ -10,20 +10,23 @@ their upstream keys):
   ``{head}.logit_fc.{0,2,3}``;
 - the masked-modeling heads (``cls.predictions`` with its decoder tied to
   the word-embedding table, ``cls.imagePredictions``);
-- :func:`build_head_slabs` / :func:`fused_layer_norm`: the weights side and
-  the LayerNorm of the fused decode-head program (models/vilbert.py:
+- :func:`build_head_slabs` (:func:`build_int8_head_slabs` in the int8
+  storage mode) / :func:`fused_layer_norm`: the weights side and the
+  LayerNorm of the fused decode-head program (models/vilbert.py:
   fused_head_output).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 from torch import nn
 
+from vilbert_multitask_tpu_torch import quant
 from vilbert_multitask_tpu_torch.config import ViLBertConfig
 from vilbert_multitask_tpu_torch.models.layers import ACT, LayerNorm
+from vilbert_multitask_tpu_torch.ops.int8_linear import padded_rows
 
 # Logit floor written into the padded dense2 bias columns of the stacked
 # label slab: padded columns come out at exactly this value, which
@@ -108,10 +111,16 @@ class PretrainingHeads(nn.Module):
         self.imagePredictions = ImagePredictionHead(cfg)
 
 
-def build_head_slabs(model: nn.Module, cfg: ViLBertConfig
+# Upstream-key prefixes of the served heads: what the fused slabs stack.
+SERVED_HEADS = ("vil_prediction.", "vil_prediction_gqa.",
+                "vil_binary_prediction.", "vil_logit.", "vil_tri_prediction.",
+                "vision_logit.", "linguisic_logit.")
+
+
+def stack_head_slabs(w: Callable[[str], torch.Tensor], cfg: ViLBertConfig
                      ) -> Dict[str, torch.Tensor]:
-    """Stack the serving heads' weights of a ``ViLBertForVLTasks`` into the
-    batched slabs of the fused decode-head program.
+    """Stack the serving heads' weights into the batched slabs of the fused
+    decode-head program; ``w(key)`` gives the tensor at an upstream key.
 
     - the two wide label classifiers (VQA / GQA) stack on a leading head
       axis; their dense2 kernels zero-pad to the wider label count and the
@@ -120,52 +129,97 @@ def build_head_slabs(model: nn.Module, cfg: ViLBertConfig
       one (bi, 4) kernel — independent output columns;
     - the paired NLVR2 classifier and the grounding heads keep their own.
 
-    Kernels are ``(in, out)`` like the JAX package's, in the dtype the
-    module holds them (the engine's compute dtype); the LayerNorm leaves
-    keep theirs (f32). Built once per weight load, outside any forward.
+    Kernels are ``(in, out)`` like the JAX package's, in the dtype ``w``
+    gives them; built once per weight load, outside any forward.
     """
     wmax = max(cfg.num_labels, cfg.gqa_num_labels)
 
-    def fc(head):
-        lin1, _, norm, lin2 = head.logit_fc
-        return lin1, norm, lin2
+    def kernel(lin):
+        return w(f"{lin}.weight").t()
 
-    def padded(lin2):
-        k, b = lin2.weight.t(), lin2.bias
+    def padded(lin):
+        k, b = kernel(lin), w(f"{lin}.bias")
         pad = wmax - b.shape[-1]
         return (torch.nn.functional.pad(k, (0, pad)),
                 torch.nn.functional.pad(b, (0, pad), value=PAD_LOGIT_BIAS))
 
+    def pair(key):
+        return torch.stack([w(f"vil_prediction.{key}"),
+                            w(f"vil_prediction_gqa.{key}")])
+
     with torch.no_grad():
-        v1, vn, v2 = fc(model.vil_prediction)
-        g1, gn, g2 = fc(model.vil_prediction_gqa)
-        b1, bn, b2 = fc(model.vil_binary_prediction)
-        k_vqa, b_vqa = padded(v2)
-        k_gqa, b_gqa = padded(g2)
+        k_vqa, b_vqa = padded("vil_prediction.logit_fc.3")
+        k_gqa, b_gqa = padded("vil_prediction_gqa.logit_fc.3")
         slabs = {
-            "label_d1_kernel": torch.stack([v1.weight.t(), g1.weight.t()]),
-            "label_d1_bias": torch.stack([v1.bias, g1.bias]),
-            "label_ln_scale": torch.stack([vn.weight, gn.weight]),
-            "label_ln_bias": torch.stack([vn.bias, gn.bias]),
+            "label_d1_kernel": torch.stack([
+                kernel("vil_prediction.logit_fc.0"),
+                kernel("vil_prediction_gqa.logit_fc.0")]),
+            "label_d1_bias": pair("logit_fc.0.bias"),
+            "label_ln_scale": pair("logit_fc.2.weight"),
+            "label_ln_bias": pair("logit_fc.2.bias"),
             "label_d2_kernel": torch.stack([k_vqa, k_gqa]),
             "label_d2_bias": torch.stack([b_vqa, b_gqa]),
-            "pooled_kernel": torch.cat([model.vil_logit.weight.t(),
-                                        model.vil_tri_prediction.weight.t()],
+            "pooled_kernel": torch.cat([kernel("vil_logit"),
+                                        kernel("vil_tri_prediction")],
                                        dim=-1),
-            "pooled_bias": torch.cat([model.vil_logit.bias,
-                                      model.vil_tri_prediction.bias]),
-            "binary_d1_kernel": b1.weight.t(),
-            "binary_d1_bias": b1.bias,
-            "binary_ln_scale": bn.weight,
-            "binary_ln_bias": bn.bias,
-            "binary_d2_kernel": b2.weight.t(),
-            "binary_d2_bias": b2.bias,
-            "vision_kernel": model.vision_logit.weight.t(),
-            "vision_bias": model.vision_logit.bias,
-            "ling_kernel": model.linguisic_logit.weight.t(),
-            "ling_bias": model.linguisic_logit.bias,
+            "pooled_bias": torch.cat([w("vil_logit.bias"),
+                                      w("vil_tri_prediction.bias")]),
+            "binary_d1_kernel": kernel("vil_binary_prediction.logit_fc.0"),
+            "binary_d1_bias": w("vil_binary_prediction.logit_fc.0.bias"),
+            "binary_ln_scale": w("vil_binary_prediction.logit_fc.2.weight"),
+            "binary_ln_bias": w("vil_binary_prediction.logit_fc.2.bias"),
+            "binary_d2_kernel": kernel("vil_binary_prediction.logit_fc.3"),
+            "binary_d2_bias": w("vil_binary_prediction.logit_fc.3.bias"),
+            "vision_kernel": kernel("vision_logit"),
+            "vision_bias": w("vision_logit.bias"),
+            "ling_kernel": kernel("linguisic_logit"),
+            "ling_bias": w("linguisic_logit.bias"),
         }
         return {k: v.detach().contiguous().clone() for k, v in slabs.items()}
+
+
+def build_head_slabs(model: nn.Module, cfg: ViLBertConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """:func:`stack_head_slabs` of a (floating) ``ViLBertForVLTasks``: the
+    kernels in the dtype the modules hold them (the engine's compute
+    dtype), the LayerNorm leaves in theirs (f32)."""
+    return stack_head_slabs(model.state_dict().__getitem__, cfg)
+
+
+def build_int8_head_slabs(params: Dict, cfg: ViLBertConfig,
+                          dtype: torch.dtype, device
+                          ) -> Dict[str, torch.Tensor]:
+    """The int8 slabs, as the JAX engine builds them
+    (``_make_head_slab_builder``, engine/runtime.py:476-500): the served
+    heads' already-quantized leaves of ``params`` (an upstream-key tree of
+    ``{"int8", "scale"}`` pairs) dequantized to f32, stacked by
+    :func:`stack_head_slabs`, and every ``*_kernel`` slab quantized again
+    over its last axis, so a stacked ``(2, in, out)`` slab has one scale
+    per output column shared by both heads (a column that is zero in both
+    gets 1.0). The JAX engine builds them under ``jax.jit``, so they are
+    quantized with its arithmetic there (``jit_arithmetic``).
+
+    Each kernel slab is stored for ``ops/int8_linear.py``: int8 in torch's
+    ``(..., out, in)`` layout in rows padded to 16 bytes, with its scale
+    under ``<name>_scale`` repeated over the leading head axis. Biases are
+    in ``dtype`` (the compute dtype), LayerNorm leaves f32. Everything is
+    built on the host and placed on ``device``."""
+    f32 = quant.dequantize_tree(
+        {k: quant.leaf_to(v, "cpu") for k, v in params.items()
+         if k.startswith(SERVED_HEADS)}, torch.float32)
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in stack_head_slabs(f32.__getitem__, cfg).items():
+        if name.endswith("_kernel"):
+            pair = quant.quantize_leaf(v, -1, jit_arithmetic=True)
+            q = pair[quant.QVALUES].transpose(-1, -2)
+            scale = pair[quant.QSCALE].expand(*q.shape[:-1])
+            out[name] = padded_rows(q.to(device))
+            out[name + "_scale"] = scale.contiguous().to(device)
+        elif name.endswith("_bias"):
+            out[name] = v.to(device, dtype)
+        else:
+            out[name] = v.to(device)
+    return out
 
 
 def fused_layer_norm(h, scale, bias, eps: float):

@@ -39,6 +39,13 @@ ACT = {
 }
 
 
+def compute_dtype(module: nn.Module) -> torch.dtype:
+    """The dtype a Linear or Embedding computes in: its weight's, or the
+    compute dtype of its int8 form (models/int8.py)."""
+    dt = getattr(module, "compute_dtype", None)
+    return dt if dt is not None else module.weight.dtype
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm with flax ``nn.LayerNorm(dtype=...)`` numerics: statistics
     and the affine step run in ``promote(x.dtype, float32)`` with the

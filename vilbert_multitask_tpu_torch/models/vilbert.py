@@ -32,8 +32,9 @@ from vilbert_multitask_tpu_torch.models.heads import (
     SimpleClassifier,
     fused_layer_norm,
 )
-from vilbert_multitask_tpu_torch.models.layers import ACT
+from vilbert_multitask_tpu_torch.models.layers import ACT, compute_dtype
 from vilbert_multitask_tpu_torch.ops.attention import mask_to_bias
+from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
 
 
 @dataclasses.dataclass
@@ -67,8 +68,9 @@ class ViLBertModel(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype: the dtype the weights are held in."""
-        return self.embeddings.word_embeddings.weight.dtype
+        """The compute dtype: the dtype the weights are held in (or that
+        their int8 form computes in)."""
+        return compute_dtype(self.embeddings.word_embeddings)
 
     def forward(self, input_ids, features, spatials, segment_ids, input_mask,
                 image_mask, task_ids=None, *, collect_attention: bool = False):
@@ -176,12 +178,24 @@ class ViLBertForVLTasks(nn.Module):
         )
 
 
+def _dense(slabs: dict, name: str, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x @ kernel + bias`` of one slab (flax ``Dense``'s two roundings,
+    the product then the bias); an int8 slab runs the int8 GEMM."""
+    kernel, bias = slabs[f"{name}_kernel"], slabs[f"{name}_bias"]
+    if kernel.dtype == torch.int8:
+        return int8_linear(x, kernel, slabs[f"{name}_kernel_scale"], bias)
+    return x @ kernel.to(dtype) + bias.to(dtype)
+
+
 def fused_head_output(cfg: ViLBertConfig, slabs: dict, trunk_out,
                       image_mask, dtype) -> Tuple[ViLBertOutput, torch.Tensor]:
     """All nine serving heads from one trunk pass, as batched slab matmuls.
 
     ``slabs`` is :func:`..models.heads.build_head_slabs` of the served
-    model; ``trunk_out`` is :meth:`ViLBertForVLTasks.trunk`'s 6-tuple.
+    model (:func:`..models.heads.build_int8_head_slabs` in the int8 storage
+    mode, whose products run ``ops/int8_linear.py``: the label pair's
+    dense1 as one product over both heads' columns, its dense2 as a batch
+    of two); ``trunk_out`` is :meth:`ViLBertForVLTasks.trunk`'s 6-tuple.
     Reproduces the per-head numerics (kernels in the compute dtype,
     LayerNorm statistics in f32), so the returned :class:`ViLBertOutput`
     matches the module path to rounding. Also returns the stacked
@@ -190,23 +204,36 @@ def fused_head_output(cfg: ViLBertConfig, slabs: dict, trunk_out,
     """
     t_seq, v_seq, pooled_t, pooled_v, attn_maps, _ = trunk_out
     pooled = _fuse(cfg, pooled_t, pooled_v)
-
-    def k(name):
-        return slabs[name].to(dtype)
-
     gelu = ACT["gelu"]
+    int8 = slabs["label_d1_kernel"].dtype == torch.int8
+
     # Wide label pair (VQA + GQA): one batched classifier over a head axis.
-    h = torch.einsum("bi,kio->bko", pooled, k("label_d1_kernel"))
-    h = gelu(h + k("label_d1_bias")[None])
+    if int8:
+        q = slabs["label_d1_kernel"]  # (2, out, in)
+        h = int8_linear(pooled, q.reshape(-1, q.shape[-1]),
+                        slabs["label_d1_kernel_scale"].reshape(-1),
+                        slabs["label_d1_bias"].reshape(-1))
+        h = gelu(h.view(pooled.shape[0], 2, -1))
+    else:
+        h = torch.einsum("bi,kio->bko", pooled,
+                         slabs["label_d1_kernel"].to(dtype))
+        h = gelu(h + slabs["label_d1_bias"].to(dtype)[None])
     h = fused_layer_norm(h, slabs["label_ln_scale"], slabs["label_ln_bias"],
                          cfg.layer_norm_eps)
-    label_logits = (torch.einsum("bko,kow->bkw", h, k("label_d2_kernel"))
-                    + k("label_d2_bias")[None])
+    if int8:
+        label_logits = int8_linear(
+            h.transpose(0, 1), slabs["label_d2_kernel"],
+            slabs["label_d2_kernel_scale"],
+            slabs["label_d2_bias"]).transpose(0, 1)
+    else:
+        label_logits = (torch.einsum("bko,kow->bkw", h,
+                                     slabs["label_d2_kernel"].to(dtype))
+                        + slabs["label_d2_bias"].to(dtype)[None])
     vil_prediction = label_logits[:, 0, : cfg.num_labels]
     vil_prediction_gqa = label_logits[:, 1, : cfg.gqa_num_labels]
 
     # Tiny pooled heads, concat-fused: columns 0 = vil_logit, 1:4 = tri.
-    small = pooled @ k("pooled_kernel") + k("pooled_bias")
+    small = _dense(slabs, "pooled", pooled, dtype)
     vil_logit = small[:, :1]
     vil_tri_prediction = small[:, 1:4]
 
@@ -214,17 +241,16 @@ def fused_head_output(cfg: ViLBertConfig, slabs: dict, trunk_out,
     vil_binary_prediction = None
     if pooled.shape[0] % 2 == 0:
         paired = pooled.reshape(pooled.shape[0] // 2, -1)
-        hb = gelu(paired @ k("binary_d1_kernel") + k("binary_d1_bias"))
+        hb = gelu(_dense(slabs, "binary_d1", paired, dtype))
         hb = fused_layer_norm(hb, slabs["binary_ln_scale"],
                               slabs["binary_ln_bias"], cfg.layer_norm_eps)
-        vil_binary_prediction = (hb @ k("binary_d2_kernel")
-                                 + k("binary_d2_bias"))
+        vil_binary_prediction = _dense(slabs, "binary_d2", hb, dtype)
 
     # Per-token grounding heads, mask penalty folded in as in forward().
-    vision_logit = v_seq @ k("vision_kernel") + k("vision_bias")
+    vision_logit = _dense(slabs, "vision", v_seq, dtype)
     vision_logit = vision_logit + mask_to_bias(
         image_mask, dtype)[:, 0, 0, :, None]
-    linguisic_logit = t_seq @ k("ling_kernel") + k("ling_bias")
+    linguisic_logit = _dense(slabs, "ling", t_seq, dtype)
 
     out = ViLBertOutput(
         vil_prediction=vil_prediction,

@@ -13,11 +13,13 @@ boots on the card, warms (captures one CUDA graph per row bucket, see
 engine/graphs.py) and serves. ``--device cpu`` runs the same binary on the
 CPU (plain kernel versions, no graphs). ``--live-extract`` answers uploads
 that have no precomputed features through the live detector (detect/);
-``--checkpoint`` loads the reference's ``pytorch_model_*.bin`` and
-``--detector-checkpoint`` a maskrcnn detector ``.pth`` (torch files: the
-JAX package's Orbax directories are not read here). What the JAX app does
-that this one does not: meshes and the XLA/AOT compile caches (no
-counterpart on this backend).
+``--checkpoint`` restores the trunk's weights from a checkpoint directory
+of this package (checkpoint/store.py) or the reference's
+``pytorch_model_*.bin``, cast on the host to ``EngineConfig.param_dtype``
+(``"int8"`` quantizes it), and ``--detector-checkpoint`` reads a maskrcnn
+detector ``.pth`` (torch files: the JAX package's Orbax directories are not
+read here). What the JAX app does that this one does not: meshes and the
+XLA/AOT compile caches (no counterpart on this backend).
 """
 
 from __future__ import annotations
@@ -86,16 +88,24 @@ class ServeApp:
         self.store = ResultStore(s.results_db_path)
         if engine is None:
             params = None
+            restore = None
             if checkpoint_path is not None:
-                from vilbert_multitask_tpu_torch.checkpoint.convert import (
-                    load_torch_checkpoint,
+                from vilbert_multitask_tpu_torch.checkpoint import (
+                    restore_params_async,
                 )
 
-                params = load_torch_checkpoint(checkpoint_path,
-                                               self.cfg.model)
+                # Cast to the engine's storage dtype on the host ("int8"
+                # quantizes: an int8 deployment never serves a checkpoint
+                # fat), in the background while the detector is built.
+                restore = restore_params_async(
+                    checkpoint_path, dtype=self.cfg.engine.param_dtype,
+                    cfg=self.cfg.model)
             store = FeatureStore(feature_root)
             if live_extract:
                 store = self._live_store(store, detector_checkpoint, device)
+            if restore is not None:
+                params = restore.join()
+                self.boot_info["restore_s"] = round(restore.seconds, 1)
             t0 = time.perf_counter()
             with obs.span("serve.boot"):
                 # pool_replicas engines share ONE set of weights (the
@@ -108,7 +118,7 @@ class ServeApp:
                         self.cfg, params=params, feature_store=store,
                         replica_id=f"r{i}", device=device))
                     if params is None:
-                        params = engines[0].model.state_dict()
+                        params = engines[0].state_dict()
                 engine = engines
             self.boot_info["engine_init_s"] = round(
                 time.perf_counter() - t0, 1)
@@ -451,18 +461,20 @@ class ServeApp:
         enqueues, no request observes the swap at all. Same-shape trees
         swap with ZERO recompiles (compiled programs take params as a call
         argument — engine.load_params copies into the captured weights in
-        place). ``checkpoint_path`` is an upstream ``.bin``/``.pth``
-        (:func:`..checkpoint.convert.load_torch_checkpoint`); ``params``
-        an upstream-layout state dict."""
+        place). ``checkpoint_path`` is a checkpoint directory or an
+        upstream ``.bin``/``.pth`` (:func:`..checkpoint.restore_params`),
+        cast to the engine's ``param_dtype``, so an int8 deployment
+        re-quantizes an incoming f32 checkpoint; ``params`` an
+        upstream-layout state dict."""
         if params is None:
             if checkpoint_path is None:
                 raise ValueError("rolling_swap needs checkpoint_path or "
                                  "params")
-            from vilbert_multitask_tpu_torch.checkpoint.convert import (
-                load_torch_checkpoint,
-            )
+            from vilbert_multitask_tpu_torch.checkpoint import restore_params
 
-            params = load_torch_checkpoint(checkpoint_path, self.cfg.model)
+            params = restore_params(checkpoint_path,
+                                    dtype=self.cfg.engine.param_dtype,
+                                    cfg=self.cfg.model)
         t0 = time.perf_counter()
         obs.record_event("rolling_swap_start",
                          checkpoint=checkpoint_path or "<in-memory>")
@@ -517,7 +529,7 @@ class ServeApp:
             labelnames=("version", "backend", "param_dtype",
                         "config_fingerprint"),
         ).set(1, version=__version__, backend=backend,
-              param_dtype=self.cfg.engine.compute_dtype,
+              param_dtype=self.cfg.engine.param_dtype,
               config_fingerprint=self.fingerprint)
         self.boot_info["config_fingerprint"] = self.fingerprint
         self.boot_info["identity"] = self.identity.as_dict()
@@ -627,8 +639,9 @@ def main(argv=None) -> None:
     p.add_argument("--ws-port", type=int, default=None,
                    help="websocket port (default ServingConfig.ws_port)")
     p.add_argument("--checkpoint", default=None,
-                   help="the reference's trunk checkpoint "
-                        "(pytorch_model_*.bin, upstream torch layout); "
+                   help="the trunk's weights: a checkpoint directory "
+                        "of this package or the reference's "
+                        "pytorch_model_*.bin (upstream torch layout); "
                         "omitting it serves SEEDED RANDOM weights")
     p.add_argument("--live-extract", action="store_true",
                    help="run the Faster R-CNN on uploads with no "
