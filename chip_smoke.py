@@ -32,15 +32,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (N, K) of the full-width forward at M = 38·{1, 32} and 101·{1, 32}, at
    the shapes of a bucket-1 and a bucket-32 forward, at the edges (M = 1,
    15, 17; N = 1, 3, 4, 3129; K = 5 and 37, the element-wise x path; K off
-   the 64-deep tiles) and on strided x; per serving shape,
+   the 64-deep tiles) and on strided x, the trunk's and the head slabs'
+   scale paths in turns, each launch's plan (kernel, tile, splits, blocks)
+   printed and two launches on the same inputs bit-identical; per serving
+   shape,
    the kernel's device time (calls captured in a CUDA graph, replays timed
    by CUDA events, median), the plain version's, the yardstick library
    call's where one exists (``scaled_dot_product_attention``; ``F.linear``
    on the pre-dequantized bf16 weight for ``int8_linear``, and
    ``aten._weight_int8pack_mm`` where this PyTorch runs it on CUDA; never
    called by the port; none computes NMS or this ROIAlign), the same as eager
-   back-to-back calls (host launch cost included), and the least time the
-   card could take (``bound_ms``);
+   back-to-back calls (host launch cost included), the least time the
+   card could take (``bound_ms``), and for ``int8_linear`` at the shapes
+   of the two forwards the kernel's and ``F.linear``'s time with the
+   weights cold in L2 (a pass over copies larger than the L2);
 detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
    X-152-32x8d-FPN, canvas 1344, seeded weights) on four seeded images
    (160x120 upscaled, 640x480, 1333x800, 2000x1500 downscaled): 2 ``nms``
@@ -173,6 +178,13 @@ LAUNCHES_PER_FORWARD = 18  # 12 bridge directions + 6 visual self-attentions
 # the order of operations the compiler keeps differs): |d| <= atol + rtol|p|.
 ROI_ATOL = ROI_RTOL = 1e-5
 NMS_IOU_OPS = 13  # f32 operations of one IoU test (csrc/nms.cu)
+# SASS instructions counted per kernel: mma.sync, cp.async, ldmatrix, wgmma,
+# TMA loads.
+SASS_COUNTED = ("HMMA", "LDGSTS", "LDSM", "HGMMA", "UTMALDG")
+# Cold-L2 timing: each shape's weights rotate through copies that add up to
+# more than the H100's 50 MB L2 (at most INT8_COLD_MAX_COPIES copies).
+INT8_COLD_BYTES = 64 << 20
+INT8_COLD_MAX_COPIES = 256
 # Per extracted image: one NMS call for the 5 RPN levels, one for the
 # per-class selection, one ROIAlign call.
 NMS_PER_IMAGE, ROI_PER_IMAGE = 2, 1
@@ -292,7 +304,7 @@ def kernel_build_notes(_build, name: str) -> list:
         m = re.search(r"Function : (\w+)", line)
         if m:
             cur = notes.setdefault(m.group(1), {})
-            cur["sass"] = dict.fromkeys(("HMMA", "LDGSTS", "LDSM"), 0)
+            cur["sass"] = dict.fromkeys(SASS_COUNTED, 0)
         elif cur is not None:
             m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
             if m and m.group(1) in cur["sass"]:
@@ -301,23 +313,30 @@ def kernel_build_notes(_build, name: str) -> list:
     for mangled, rec in sorted(notes.items()):
         m = re.search(r"(flash_attn_(?:bf16|f32)_kernel|nms_mask_kernel|"
                       r"nms_scan_kernel|roi_align_kernel|"
-                      r"int8_linear_(?:bf16|f32)_kernel)(?:IL[ib](\d+)E)?",
-                      mangled)
-        rec["kernel"] = (m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                      r"int8_linear_(?:bf16_stream|bf16_wgmma|f32)_kernel)"
+                      r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
+        args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
+        rec["kernel"] = (m.group(1) + (f"<{','.join(args)}>" if args
                                        else "")) if m else mangled
         out.append(rec)
     return out
 
 
 def check_build_notes(notes: list) -> None:
+    """No spills anywhere; the bf16 kernels' SASS holds their tensor-core
+    and copy instructions: mma.sync (HMMA) and cp.async (LDGSTS), and for
+    the int8 wgmma kernel wgmma (HGMMA) and TMA (UTMALDG)."""
     for rec in notes:
         if rec.get("spill_store_bytes", 0) or rec.get("spill_load_bytes", 0):
             raise AssertionError(f"{rec['kernel']} spills: {rec}")
         sass = rec.get("sass", {})
-        if "bf16" in rec["kernel"] and not (sass.get("HMMA")
-                                            and sass.get("LDGSTS")):
-            raise AssertionError(f"{rec['kernel']} has no mma.sync or no "
-                                 f"cp.async in its SASS: {sass}")
+        if "bf16" not in rec["kernel"]:
+            continue
+        need = (("HGMMA", "UTMALDG") if "wgmma" in rec["kernel"]
+                else ("HMMA", "LDGSTS"))
+        if not all(sass.get(op) for op in need):
+            raise AssertionError(f"{rec['kernel']} lacks one of {need} in "
+                                 f"its SASS: {sass}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -735,6 +754,15 @@ def int8_forward_shapes(mcfg, rows: int) -> list:
     return out
 
 
+# The fused head products of int8_forward_shapes: their slabs pass the f32
+# scale (the kernels' f32-scale path); every trunk Linear, the poolers
+# included, passes its scale rounded to bf16.
+INT8_HEAD_PRODUCTS = ("VQA/GQA dense1 (columns of both)",
+                      "VQA/GQA dense2 (a batch of two)",
+                      "pooled heads (vil_logit + tri)", "vision_logit",
+                      "linguisic_logit", "NLVR2 dense1", "NLVR2 dense2")
+
+
 def int8_launches_per_forward(mcfg, rows: int) -> int:
     return sum(s[4] for s in int8_forward_shapes(mcfg, rows))
 
@@ -788,29 +816,86 @@ def int8_bound_parts(M, N, K, batch, itemsize) -> tuple:
             2 * M * N * K * batch / peak * 1e3)
 
 
+def rotation_ms(fns: list, *, reps: int = 5) -> float:
+    """Device time of one call when consecutive calls each run another of
+    ``fns`` (one pass over them captured in a CUDA graph, replays timed by
+    CUDA events): the median over ``reps`` replays of the mean per call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / len(fns))
+    del graph
+    return statistics.median(times)
+
+
+def cold_copies(copy, n_bytes: int) -> list:
+    """Copies (made by ``copy()``) of an operand of ``n_bytes`` that together
+    exceed the L2, so a pass over them reads each from device memory; at
+    most INT8_COLD_MAX_COPIES."""
+    n = min(INT8_COLD_MAX_COPIES, -(-INT8_COLD_BYTES // max(n_bytes, 1)))
+    return [copy() for _ in range(max(n, 2))]
+
+
+def plan_text(plan) -> str:
+    return (f"{plan.regime} tile {plan.tile_m}x{plan.tile_n} splits "
+            f"{plan.splits} blocks {plan.blocks}")
+
+
 def check_int8_linear(torch, report: dict, mcfg) -> dict:
     """K1 against its plain version on the card: bf16 within atol 1e-2 +
     rtol 1e-2, f32 within 2e-5 x max(1, |ref|), at every (N, K) of the
     full-width forward at M = 38·{1, 32} and 101·{1, 32}, at the shapes of
-    a bucket-1 and a bucket-32 forward, and at the edges; a strided x (the
-    poolers' first token, the label pair's head axis). Per timed shape the
-    kernel's device time, the plain version's, ``F.linear`` on the
-    pre-dequantized bf16 weight (cuBLAS reading twice the weight bytes:
-    the bf16 engine's own product) and ``aten._weight_int8pack_mm`` where
-    this PyTorch runs it on CUDA, and the bound. Returns {(M, N, K, batch):
-    row} of the timed shapes."""
+    a bucket-1 and a bucket-32 forward, and at the edges; in bf16 both scale
+    paths at every shape (the trunk's, the scale rounded to bf16, and the
+    head slabs', f32), two launches on the same inputs bit-identical; a
+    strided x (the poolers' first token, the label pair's head axis). Per
+    shape the launch plan. Per timed shape, on the scale path its forward
+    launch takes, the kernel's device time, the plain version's,
+    ``F.linear`` on the pre-dequantized bf16 weight (cuBLAS reading twice
+    the weight bytes: the bf16 engine's own product)
+    and ``aten._weight_int8pack_mm`` where this PyTorch runs it on CUDA,
+    and the bound; at the shapes of the two forwards also the kernel's and
+    ``F.linear``'s time with the weights cold in L2 (rotating through
+    copies of them that exceed it). Returns {(M, N, K, batch): row} of the
+    timed shapes."""
     import torch.nn.functional as F
 
     from vilbert_multitask_tpu_torch.ops.int8_linear import (
         int8_linear,
         int8_linear_plain,
+        padded_rows,
+        plan_launch,
     )
 
     gen = torch.Generator(device="cpu").manual_seed(0)
-    timed = {}
-    for rows in (1, 32):
+    timed, forward_shapes, head_nk = {}, set(), set()
+    for rows in (1, 2, 32):
         for M, N, K, batch, _, what in int8_forward_shapes(mcfg, rows):
+            if what in INT8_HEAD_PRODUCTS:
+                head_nk.add((N, K, batch))
+            if rows == 2:
+                continue
             timed.setdefault((M, N, K, batch), f"{what}, bucket {rows}")
+            forward_shapes.add((M, N, K, batch))
     nk = sorted({(N, K, batch) for _, N, K, batch, _, _ in
                  int8_forward_shapes(mcfg, 2)})
     for M in (38, 101, 38 * 32, 101 * 32):
@@ -821,50 +906,84 @@ def check_int8_linear(torch, report: dict, mcfg) -> dict:
     pack_mm = getattr(torch.ops.aten, "_weight_int8pack_mm", None)
     pack_mm_ok = None
     rows_out, by_shape = [], {}
-    for i, (M, N, K, batch, what, time_it) in enumerate(cases):
-        round_scale = i % 2 == 0
-        x16, q, s, b16 = int8_operands(torch, gen, M, N, K, batch,
-                                       torch.bfloat16, round_scale)
+    for M, N, K, batch, what, time_it in cases:
+        plan = plan_launch(M, N, K, batch)
+        x16, q, s32, b16 = int8_operands(torch, gen, M, N, K, batch,
+                                         torch.bfloat16, False)
+        s16 = s32.to(torch.bfloat16).float()  # the trunk's scale
         x32, b32 = x16.float(), b16.float()
-        ref16 = int8_linear_plain(x16, q, s, b16).float()
-        out16 = int8_linear(x16, q, s, b16).float()
+        paths = {}
+        for scale_bf16, s in ((True, s16), (False, s32)):
+            ref16 = int8_linear_plain(x16, q, s, b16).float()
+            out16 = int8_linear(x16, q, s, b16, scale_bf16=scale_bf16)
+            again16 = int8_linear(x16, q, s, b16, scale_bf16=scale_bf16)
+            torch.cuda.synchronize()
+            paths[scale_bf16] = bf16_check(out16.float(), ref16) + (
+                bool(torch.equal(out16.view(torch.int16),
+                                 again16.view(torch.int16))),)
+        # f32: the kernel dequantizes with __fmul_rn whatever the scale.
+        round_scale = (N, K, batch) not in head_nk
+        s = s16 if round_scale else s32
         ref32 = int8_linear_plain(x32, q, s, b32)
         out32 = int8_linear(x32, q, s, b32)
         torch.cuda.synchronize()
-        err16, used16 = bf16_check(out16, ref16)
+        err16, used16, same_bits = max(paths.values(), key=lambda p: p[1])
+        same_bits = all(p[2] for p in paths.values())
         d32 = (out32 - ref32).abs()
         err32 = d32.max().item()
         used32 = (d32 / (F32_TOL * ref32.abs().clamp_min(1.0))).max().item()
         row = dict(M=M, N=N, K=K, batch=batch, what=what,
-                   scale_rounded_to_bf16=round_scale,
+                   timed_scale_path="bf16" if round_scale else "f32",
+                   plan=dict(regime=plan.regime, tile_m=plan.tile_m,
+                             tile_n=plan.tile_n, splits=plan.splits,
+                             blocks=plan.blocks),
                    max_abs_err_bf16=err16, tol_used_bf16=used16,
-                   bit_equal_bf16=bool(err16 == 0.0),
+                   max_abs_err_bf16_by_scale_path={
+                       "bf16": paths[True][0], "f32": paths[False][0]},
+                   bit_equal_bf16=bool(paths[True][0] == 0.0
+                                       and paths[False][0] == 0.0),
+                   two_launches_bit_identical=same_bits,
                    max_abs_err_f32=err32, tol_used_f32=used32)
         if time_it:
             w16 = (q.float() * s.unsqueeze(-1)).to(torch.bfloat16)
+
+            def library(w, x=x16, b=b16, batch=batch):
+                return (torch.baddbmm(b.unsqueeze(-2), x, w.transpose(-1, -2))
+                        if batch > 1 else F.linear(x, w, b))
+
             fns = dict(
-                kernel=lambda: int8_linear(x16, q, s, b16),
+                kernel=lambda: int8_linear(x16, q, s, b16,
+                                           scale_bf16=round_scale),
                 plain=lambda: int8_linear_plain(x16, q, s, b16),
-                library=lambda: torch.baddbmm(
-                    b16.unsqueeze(-2), x16, w16.transpose(-1, -2))
-                if batch > 1 else F.linear(x16, w16, b16))
+                library=lambda: library(w16))
             if (pack_mm is not None and batch == 1 and K % 32 == 0
                     and N % 8 == 0 and pack_mm_ok is not False):
-                s16 = s.to(torch.bfloat16)
+                s_pack = s.to(torch.bfloat16)
                 qc = q.contiguous()
                 try:  # a yardstick only: the port never calls it
-                    pack_mm(x16, qc, s16)
+                    pack_mm(x16, qc, s_pack)
                     torch.cuda.synchronize()
                     pack_mm_ok = True
                 except (RuntimeError, NotImplementedError) as e:
                     pack_mm_ok = False
                     report["int8pack_mm_error"] = str(e)[:300]
                 if pack_mm_ok:
-                    fns["int8pack_mm"] = lambda: pack_mm(x16, qc, s16)
+                    fns["int8pack_mm"] = lambda: pack_mm(x16, qc, s_pack)
             for name, fn in fns.items():
                 row[f"{name}_ms"] = device_ms(fn, reps=9, inner=5)
             row["kernel_f32_ms"] = device_ms(
                 lambda: int8_linear(x32, q, s, b32), reps=5, inner=2)
+            if (M, N, K, batch) in forward_shapes:
+                qs = cold_copies(lambda: padded_rows(q), q.numel())
+                ws = cold_copies(w16.clone, 2 * w16.numel())
+                row["kernel_cold_ms"] = rotation_ms(
+                    [lambda qq=qq: int8_linear(x16, qq, s, b16,
+                                               scale_bf16=round_scale)
+                     for qq in qs])
+                row["library_cold_ms"] = rotation_ms(
+                    [lambda ww=ww: library(ww) for ww in ws])
+                row["cold_copies"] = [len(qs), len(ws)]
+                del qs, ws
             row["bound_bytes_ms"], row["bound_ops_ms"] = int8_bound_parts(
                 M, N, K, batch, 2)
             row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_ops_ms"])
@@ -872,16 +991,20 @@ def check_int8_linear(torch, report: dict, mcfg) -> dict:
                                >= row["bound_ops_ms"] else "operations")
             by_shape[(M, N, K, batch)] = row
         rows_out.append(row)
-        log("int8_linear M=%d N=%d K=%d batch=%d (%s): err_bf16=%.3e (%.2f "
-            "of tol%s) err_f32=%.3e (%.2f of tol)%s" % (
-                M, N, K, batch, what, err16, used16,
+        log("int8_linear M=%d N=%d K=%d batch=%d (%s) [%s]: err_bf16=%.3e "
+            "(%.2f of tol%s) err_f32=%.3e (%.2f of tol)%s%s" % (
+                M, N, K, batch, what, plan_text(plan), err16, used16,
                 ", bit-equal" if err16 == 0.0 else "", err32, used32,
+                "" if same_bits else " TWO LAUNCHES DIFFER",
                 "" if not time_it else
-                " | kernel_ms=%.5f plain_ms=%.5f library_ms=%.5f%s "
+                " | kernel_ms=%.5f plain_ms=%.5f library_ms=%.5f%s%s "
                 "f32_kernel_ms=%.5f bound_ms=%.6f (%s)" % (
                     row["kernel_ms"], row["plain_ms"], row["library_ms"],
                     " int8pack_mm_ms=%.5f" % row["int8pack_mm_ms"]
                     if "int8pack_mm_ms" in row else "",
+                    " cold: kernel %.5f library %.5f" % (
+                        row["kernel_cold_ms"], row["library_cold_ms"])
+                    if "kernel_cold_ms" in row else "",
                     row["kernel_f32_ms"], row["bound_ms"], row["bound_by"])))
         if not used16 <= 1.0:
             raise AssertionError(
@@ -891,6 +1014,9 @@ def check_int8_linear(torch, report: dict, mcfg) -> dict:
             raise AssertionError(
                 f"int8_linear f32 error {err32:.3e} beyond {F32_TOL} x "
                 f"max(1, |ref|) at {(M, N, K, batch)} ({what})")
+        if not same_bits:
+            raise AssertionError(f"int8_linear: two launches on the same "
+                                 f"inputs differ at {(M, N, K, batch)}")
     # Strided x: the poolers read the first token of each row in place,
     # the label pair's dense2 reads each head's rows through a transpose.
     x16, q, s, b16 = int8_operands(torch, gen, 4, 1024, 768, 1,
@@ -3014,13 +3140,20 @@ def main() -> int:
         "bound_by": ("bytes" if per_forward(1, "bound_bytes_ms")
                      >= per_forward(1, "bound_ops_ms") else "operations"),
         "library_ms": per_forward(1, "library_ms"),
+        "ms_cold_l2": per_forward(1, "kernel_cold_ms"),
+        "library_ms_cold_l2": per_forward(1, "library_cold_ms"),
         "per": "one bucket-1 forward: 189 bf16 launches (184 trunk Linear, "
                "5 head products); library = F.linear on the dequantized "
-               "bf16 weights",
+               "bf16 weights; *_cold_l2: the weights rotated through copies "
+               "larger than the L2",
         "notes": {
             "instantiations": report["build_notes"]["int8_linear"],
             "bucket_32": {k: per_forward(32, f"{k}_ms") for k in
-                          ("kernel", "plain", "bound", "library")},
+                          ("kernel", "plain", "bound", "library",
+                           "kernel_cold", "library_cold")},
+            "plans": {f"{M}x{N}x{K}x{b}": int8_rows[(M, N, K, b)]["plan"]
+                      for rows in (1, 32) for M, N, K, b, _, _ in
+                      int8_forward_shapes(ViLBertConfig(), rows)},
             "max_tol_used_bf16": max(r["tol_used_bf16"]
                                      for r in report["int8_linear_shapes"]),
             "int8pack_mm_on_cuda": report["int8pack_mm_on_cuda"],

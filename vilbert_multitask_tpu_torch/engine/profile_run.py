@@ -1,13 +1,15 @@
 """Where one served request's time goes on the card.
 
     python3 -m vilbert_multitask_tpu_torch.engine.profile_run [--reps N] [--graphs]
+        [--param-dtype int8]
 
 Builds the engine at the full serving config (``ViLBertConfig()`` +
-``EngineConfig()``: bf16 compute, fused heads, flash kernel on) with seeded
-random weights on ``cuda``, prepares one VQA request (bucket 1, 100 seeded
-regions), warms ``run()`` — eagerly, or with ``--graphs`` after capturing
-bucket 1's CUDA graph (engine.warmup), so every run replays it — then
-measures:
+``EngineConfig()``: bf16 compute, fused heads, flash kernel on; with
+``--param-dtype int8`` the int8 storage mode, every Linear and head product
+on the int8 GEMM) with seeded random weights on ``cuda``, prepares one VQA
+request (bucket 1, 100 seeded regions), warms ``run()`` — eagerly, or with
+``--graphs`` after capturing bucket 1's CUDA graph (engine.warmup), so every
+run replays it — then measures:
 
 - ``wall_ms``: host clock around ``run()`` (which ends in the blocking fetch
   of the decode bundle), median of ``reps`` runs without the profiler;
@@ -16,10 +18,13 @@ measures:
   kernels' device intervals), and the kernels that take the most device time;
 - ``idle_share = 1 - busy / wall``: how far the host holds the card back;
 - ``host_top``: the host-side operations with the most self CPU time per
-  run (where the host's share of the wall goes).
+  run (where the host's share of the wall goes);
+- ``int8_linear``: the int8 GEMM kernels' launches and device time per run
+  and their share of the device's busy time (int8 storage mode).
 
 Prints one JSON line and writes it to ``chiprun_out/profile_run.json``
-(``profile_run_graphs.json`` with ``--graphs``).
+(``profile_run_graphs.json`` with ``--graphs``; ``_int8`` before
+``.json`` with ``--param-dtype int8``).
 Needs a CUDA device; raises without one.
 """
 
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import statistics
@@ -45,8 +51,8 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False
-                ) -> dict:
+def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False,
+                param_dtype: str = None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,6 +63,9 @@ def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False
     )
 
     cfg = FrameworkConfig()
+    if param_dtype is not None:
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, param_dtype=param_dtype))
     eng = InferenceEngine(cfg, seed=seed, device="cuda")
     region = synthetic_regions(cfg.model.v_feature_size, n_boxes=100,
                                seed=seed)
@@ -86,12 +95,14 @@ def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False
         by_name[e.name][1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     flash = [v for k, v in by_name.items() if "flash_attn" in k]
+    int8 = [v for k, v in by_name.items() if "int8_linear" in k]
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
     return {
         "device": torch.cuda.get_device_name(0),
-        "config": "ViLBertConfig() + EngineConfig(), bucket 1 (VQA)",
+        "config": "ViLBertConfig() + EngineConfig(param_dtype=%r), bucket 1 "
+                  "(VQA)" % cfg.engine.param_dtype,
         "mode": "graph replay" if graphs else "eager",
         "reps": reps,
         "wall_ms_p50": wall_ms,
@@ -104,6 +115,18 @@ def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False
                         "device_ms_per_run":
                             sum(t for _, t in flash) / 1e3 / reps}
                        if flash else None),
+        "int8_linear": ({"launches_per_run": sum(c for c, _ in int8) / reps,
+                         "device_ms_per_run":
+                             sum(t for _, t in int8) / 1e3 / reps,
+                         "share_of_busy":
+                             sum(t for _, t in int8) / 1e3 / reps / busy_ms
+                             if busy_ms else None,
+                         "by_kernel": {k[:120]: {"launches_per_run": c / reps,
+                                                 "device_ms_per_run":
+                                                     t / 1e3 / reps}
+                                       for k, (c, t) in by_name.items()
+                                       if "int8_linear" in k}}
+                        if int8 else None),
         "top_kernels": [{"name": k[:120], "launches_per_run": c / reps,
                          "device_ms_per_run": t / 1e3 / reps}
                         for k, (c, t) in top],
@@ -122,12 +145,16 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--graphs", action="store_true",
                     help="capture bucket 1's CUDA graph first (engine.warmup)")
+    ap.add_argument("--param-dtype", default=None,
+                    help="EngineConfig.param_dtype (e.g. int8)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    report = profile_run(args.reps, args.seed, graphs=args.graphs)
-    args.out = args.out or os.path.join(
-        "chiprun_out",
-        "profile_run_graphs.json" if args.graphs else "profile_run.json")
+    report = profile_run(args.reps, args.seed, graphs=args.graphs,
+                         param_dtype=args.param_dtype)
+    name = "profile_run_graphs" if args.graphs else "profile_run"
+    if args.param_dtype:
+        name += f"_{args.param_dtype}"
+    args.out = args.out or os.path.join("chiprun_out", name + ".json")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -105,7 +105,8 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return int8_linear(x, self.qweight, self.kernel_scale,
-                           self.kernel_bias)
+                           self.kernel_bias,
+                           scale_bf16=self.compute_dtype == torch.bfloat16)
 
     def _save_to_state_dict(self, destination, prefix, keep_vars):
         destination[prefix + "weight"] = {quant.QVALUES: self.qweight,
