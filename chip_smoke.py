@@ -23,11 +23,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the serving shapes and at the edges of its tiles, widths and masks:
    ``flash_attn`` in f32 (max abs error <= 2e-5, the JAX package's own
    kernel tolerance) and bf16; ``nms`` keep masks identical at the RPN
-   (5 x 1000) and selection (1600 x 300) shapes, N off the 64-box words,
-   ragged groups, identical, disjoint and tied boxes and IoUs exactly at
-   the threshold; ``roi_align`` within atol 1e-5 + rtol 1e-5 at 300
-   proposals over the 1344-canvas P2..P5 maps, boxes on level boundaries,
-   off the canvas, of zero area, and each level alone; ``int8_linear`` in
+   (5 x 1000) and selection (1600 x 300, one shared box set) shapes, N off
+   the 64-box words, ragged groups, identical, disjoint and tied boxes,
+   IoUs exactly at the threshold, shared box sets of 1000 (ragged counts,
+   the mask staged in shared memory) and 2100 boxes (the mask from L2),
+   and the selection shape with exact-zero and tied scores and degenerate
+   boxes, each case's launch plan printed and every route of the kernel
+   required; ``roi_align`` within atol 1e-5 + rtol 1e-5 (the serving shape
+   bit-equal) at 300 proposals over the 1344-canvas P2..P5 maps, boxes on
+   level boundaries, off the canvas, of zero area, each level alone, with
+   sqrt(area)/224 exactly 1, 2 and 4 and 1 and 8 ulps either side (the
+   kernel chooses the level), and on map views of 255 channels and of a
+   base 4 bytes off (the scalar instance); ``int8_linear`` in
    bf16 (atol 1e-2 + rtol 1e-2) and f32 (2e-5 x max(1, |ref|)) at every
    (N, K) of the full-width forward at M = 38·{1, 32} and 101·{1, 32}, at
    the shapes of a bucket-1 and a bucket-32 forward, at the edges (M = 1,
@@ -142,6 +149,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -311,8 +319,8 @@ def kernel_build_notes(_build, name: str) -> list:
                 cur["sass"][m.group(1)] += 1
     out = []
     for mangled, rec in sorted(notes.items()):
-        m = re.search(r"(flash_attn_(?:bf16|f32)_kernel|nms_mask_kernel|"
-                      r"nms_scan_kernel|roi_align_kernel|"
+        m = re.search(r"(flash_attn_(?:bf16|f32)_kernel|nms_[a-z_]+_kernel|"
+                      r"roi_align_kernel|"
                       r"int8_linear_(?:bf16_stream|bf16_wgmma|f32)_kernel)"
                       r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
         args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
@@ -481,6 +489,21 @@ def _exact_threshold_boxes(torch, clusters: int):
     return (base[None] + off[:, None]).reshape(-1, 4)
 
 
+def _selection_ties(torch, gen, dev):
+    """The selection's shape (300 shared boxes, the (1600, 300) class-score
+    view of a (300, 1601) softmax) with exact ties and exact zeros: every
+    third box's logits are flat (its 1600 class scores tie, and tie with
+    the other flat boxes in each class), every seventh box's first 400
+    classes underflow to 0.0, and every fifth box has zero width."""
+    boxes = _boxes_in(torch, gen, (300,))
+    boxes[::5, 2] = boxes[::5, 0]
+    logits = 2.0 * torch.randn(300, 1601, generator=gen)
+    logits[::3] = 0.0
+    logits[1::7, 1:401] = -1e4
+    scores = torch.softmax(logits.to(dev), dim=1)[:, 1:].t()
+    return boxes.to(dev).expand(1600, 300, 4), scores
+
+
 def nms_cases(torch, dev):
     """(what, boxes, scores, thresh, valid, expected keep count or None)
     on the card: the two serving shapes first, then the edges."""
@@ -491,9 +514,11 @@ def nms_cases(torch, dev):
                             descending=True).values
     cases.append(("rpn serving: 5 levels x 1000, own boxes", rpn_boxes,
                   rpn_scores, 0.7, [1000] * 5, None))
-    sel_boxes = _boxes_in(torch, gen, (300,))
+    # Made on the card as the detector makes them: Tensor.to() would copy a
+    # stride-0 box set into 1600 sets and the score view into a dense one.
+    sel_boxes = _boxes_in(torch, gen, (300,)).to(dev)
     logits = 2.0 * torch.randn(300, 1601, generator=gen)
-    sel_scores = torch.softmax(logits, dim=1)[:, 1:].t()  # (1600, 300) view
+    sel_scores = torch.softmax(logits.to(dev), dim=1)[:, 1:].t()  # a view
     cases.append(("selection serving: 1600 classes x 300 shared boxes",
                   sel_boxes.expand(1600, 300, 4), sel_scores, 0.5, None,
                   None))
@@ -525,28 +550,70 @@ def nms_cases(torch, dev):
     cases.append(("3 groups x 2100 (4 mask words a lane)",
                   _boxes_in(torch, gen, (3, 2100)),
                   torch.rand(3, 2100, generator=gen), 0.5, None, None))
+    # Shared box sets: the mask staged in shared memory (N = 1000, ragged
+    # counts, so the shared walk meets the padding) and read from L2
+    # (N = 2100, 33 mask words: four a lane).
+    shared = _boxes_in(torch, gen, (1000,)).to(dev)
+    counts = torch.randint(0, 1001, (64,), generator=gen)
+    counts[:8] = torch.tensor([1000, 999, 517, 65, 64, 63, 1, 0])
+    cases.append(("shared 1000 boxes, 64 groups, ragged valid",
+                  shared.expand(64, 1000, 4),
+                  torch.rand(64, 1000, generator=gen), 0.7, counts.tolist(),
+                  None))
+    cases.append(("shared 2100 boxes, 40 groups (mask from L2)",
+                  _boxes_in(torch, gen, (2100,)).to(dev).expand(40, 2100,
+                                                                4),
+                  torch.rand(40, 2100, generator=gen), 0.5, None, None))
+    cases.append(("selection shape, exact-zero and tied scores, degenerate "
+                  "boxes", *_selection_ties(torch, gen, dev), 0.5, None,
+                  None))
     out = []
     for what, boxes, scores, thresh, valid, want in cases:
         v = None if valid is None else torch.tensor(valid).to(dev)
         out.append((what, boxes.to(dev), scores.to(dev), thresh, v, want))
+    for what, boxes, scores, *_ in out:
+        if (boxes.stride(0) == 0) != what.startswith(("selection", "shared")):
+            raise AssertionError(f"nms case {what}: boxes strides "
+                                 f"{boxes.stride()}")
     return out
 
 
+def nms_iou_count(torch, boxes, scores, keep, valid) -> int:
+    """IoU tests the greedy walk needs for these keep masks: each valid box
+    against each box kept before it in its group's order. For a box set
+    shared by every group (group stride 0) one IoU serves every group, so
+    each distinct pair the groups need counts once (at most N(N-1)/2)."""
+    G, N = scores.shape
+    dev = scores.device
+    n_valid = (torch.full((G,), N, device=dev) if valid is None
+               else torch.as_tensor(valid, device=dev))
+    pad = torch.arange(N, device=dev)[None] >= n_valid[:, None]
+    order = torch.sort(scores.masked_fill(pad, float("-inf")), dim=1,
+                       descending=True, stable=True).indices
+    if boxes.stride(0) != 0:
+        ks = keep.gather(1, order).to(torch.int64)
+        return int((torch.cumsum(ks, dim=1) - ks).masked_fill(pad, 0)
+                   .sum().item())
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(N, device=dev).expand(G, N))
+    need = torch.zeros((N, N), dtype=torch.bool, device=dev)
+    chunk = max(1, (1 << 26) // (N * N))
+    for g0 in range(0, G, chunk):
+        r, k, p = (t[g0:g0 + chunk] for t in (rank, keep, pad))
+        # box i valid, box j kept, j before i in the group's order
+        need |= ((~p)[:, :, None] & k[:, None, :]
+                 & (r[:, None, :] < r[:, :, None])).any(dim=0)
+    return int((need | need.t()).triu(1).sum().item())
+
+
 def nms_bound_ms(torch, boxes, scores, keep, valid) -> tuple:
-    """Least time for one NMS call: boxes and scores read once, the keep
-    mask written once, against 13 f32 operations per IoU the greedy walk
-    needs (each box against each box kept before it: this run's count)."""
+    """Least time for one NMS call: boxes (once, shared or not) and scores
+    read once, the keep mask written once, against 13 f32 operations per
+    IoU the greedy walk needs (:func:`nms_iou_count`: this run's count)."""
     G, N = scores.shape
     unique_boxes = N if boxes.stride(0) == 0 else G * N
     n_bytes = unique_boxes * 16 + G * N * 4 + G * N
-    n_valid = (torch.full((G,), N, device=scores.device) if valid is None
-               else valid)
-    pad = torch.arange(N, device=scores.device)[None] >= n_valid[:, None]
-    order = torch.sort(scores.masked_fill(pad, float("-inf")), dim=1,
-                       descending=True, stable=True).indices
-    ks = keep.gather(1, order).to(torch.int64)
-    before = (torch.cumsum(ks, dim=1) - ks).masked_fill(pad, 0)
-    flops = NMS_IOU_OPS * int(before.sum().item())
+    flops = NMS_IOU_OPS * nms_iou_count(torch, boxes, scores, keep, valid)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -561,14 +628,19 @@ def check_nms(torch, report: dict) -> dict:
 
     dev = torch.device("cuda")
     rows = []
+    routes = set()
     for what, boxes, scores, thresh, valid, want in nms_cases(torch, dev):
         got = nm.nms_mask(boxes, scores, thresh, valid=valid)
         ref = nm.nms_mask_plain(boxes, scores, thresh, valid=valid)
         torch.cuda.synchronize()
         wrong = int((got != ref).sum().item())
         kept = int(got.sum().item())
+        plan = nm.plan_launch(*scores.shape, boxes.stride(0) == 0)
+        routes.add((plan.shared, plan.segments, plan.staged,
+                    plan.words > 32))
         row = dict(what=what, G=scores.shape[0], N=scores.shape[1],
-                   thresh=thresh, kept=kept, mismatches=wrong)
+                   thresh=thresh, kept=kept, mismatches=wrong,
+                   plan=dataclasses.asdict(plan))
         if what.endswith("serving") or "serving:" in what:
             row["kernel_ms"] = device_ms(
                 lambda: nm.nms_mask(boxes, scores, thresh, valid=valid))
@@ -580,8 +652,10 @@ def check_nms(torch, report: dict) -> dict:
             row["bound_ms"], row["bound_by"] = nms_bound_ms(
                 torch, boxes, scores, got, valid)
         rows.append(row)
-        log("nms %s: G=%d N=%d thresh %.2f kept %d, %d mismatches vs plain%s"
+        log("nms %s: G=%d N=%d thresh %.2f kept %d, %d mismatches vs plain "
+            "(%s, %d groups a block)%s"
             % (what, row["G"], row["N"], thresh, kept, wrong,
+               " + ".join(plan.kernels), plan.groups_per_block,
                "" if "kernel_ms" not in row else
                " | kernel_ms=%.5f (eager call %.5f) plain_ms=%.5f "
                "bound_ms=%.6f (%s)" % (row["kernel_ms"],
@@ -593,6 +667,13 @@ def check_nms(torch, report: dict) -> dict:
                                  f"in {wrong} places ({what})")
         if want is not None and kept != want:
             raise AssertionError(f"nms {what}: kept {kept}, expected {want}")
+    # (shared, 8 lanes a group, staged, more than 32 mask words): every
+    # route and walk instance of csrc/nms.cu ran
+    missing = {(True, True, True, False), (True, False, True, False),
+               (True, False, False, True), (False, False, False, False),
+               (False, False, False, True)} - routes
+    if missing:
+        raise AssertionError(f"nms cases left routes untested: {missing}")
     report["nms_cases"] = rows
     return {r["what"]: r for r in rows if "kernel_ms" in r}
 
@@ -607,9 +688,42 @@ def roi_maps(torch, dev, canvas: int = 1344, channels: int = 256):
     return nchw, [t.permute(0, 2, 3, 1)[0] for t in nchw]
 
 
+def level_boundary_boxes():
+    """(boxes (15, 4) float32 numpy, ratios): square boxes whose
+    sqrt(area) / 224, in float32 as fpn_level computes it, is exactly 1, 2
+    and 4 and 1 and 8 ulps either side, where floor(4 + log2(.)) steps
+    from one FPN level to the next (found by stepping the side's last
+    bits)."""
+    import numpy as np
+
+    f32 = np.float32
+    boxes, ratios = [], []
+    for q in (1.0, 2.0, 4.0):
+        for k in (-8, -1, 0, 1, 8):
+            target = (np.array([q], f32).view(np.int32) + k).view(f32)[0]
+            start = np.array([224.0 * q], f32).view(np.int32)[0]
+            for d in sorted(range(-64, 65), key=abs):
+                side = np.array([start + d], np.int32).view(f32)[0]
+                x1 = f32(8.0)
+                x2 = f32(x1 + side)
+                w = f32(x2 - x1)
+                ratio = f32(np.sqrt(np.maximum(f32(w * w), f32(1.0)))
+                            / f32(224.0))
+                if ratio == target:
+                    boxes.append([x1, x1, x2, x2])
+                    ratios.append(float(ratio))
+                    break
+            else:
+                raise AssertionError(f"no side gives sqrt(area)/224 = "
+                                     f"{target!r}")
+    return np.array(boxes, f32), ratios
+
+
 def roi_cases(torch, dev):
-    """(what, boxes): the serving shape (300 proposals over every level)
-    first, then the edges."""
+    """(what, boxes, maps): the serving shape (300 proposals over every
+    level) first, then the edges; ``maps`` names the level-map views
+    :func:`check_roi_align` reads them from ("full": the FPN's maps, float4
+    loads; the others are views the scalar instance reads)."""
     gen = torch.Generator().manual_seed(5)
     xy = torch.rand(300, 2, generator=gen) * torch.tensor([1333.0, 800.0])
     side = torch.exp(torch.log(torch.tensor(8.0)) + torch.rand(
@@ -622,15 +736,22 @@ def roi_cases(torch, dev):
         [-500.0, -500.0, -400.0, -400.0], [1340.0, 10.0, 1500.0, 60.0],
         [40.0, 40.0, 40.0, 40.0], [60.0, 70.0, 60.0, 90.0],
         [0.0, 0.0, 1344.0, 1344.0], [3.5, 7.25, 3.75, 900.0]])
-    cases = [("serving: 300 proposals over P2..P5", serving),
-             ("level boundaries, off the canvas edge, zero area", edges)]
+    cases = [("serving: 300 proposals over P2..P5", serving, "full"),
+             ("level boundaries, off the canvas edge, zero area", edges,
+              "full")]
     for level, (lo, hi) in enumerate(((8, 100), (120, 200), (240, 420),
                                       (460, 1300))):
         side = lo + torch.rand(64, 1, generator=gen) * (hi - lo)
         xy = torch.rand(64, 2, generator=gen) * 1000.0
         cases.append((f"P{level + 2} alone (64 boxes)",
-                      torch.cat([xy, xy + side], dim=1)))
-    return [(what, b.to(dev)) for what, b in cases]
+                      torch.cat([xy, xy + side], dim=1), "full"))
+    cases.append(("sqrt(area)/224 at 1, 2, 4 and 1, 8 ulps either side",
+                  torch.from_numpy(level_boundary_boxes()[0]), "full"))
+    cases.append(("serving boxes, maps' channels 1..255 (C 255)", serving,
+                  "C 255"))
+    cases.append(("serving boxes, maps' channels 1..252 (base 4 bytes off)",
+                  serving, "offset"))
+    return [(what, b.to(dev), maps) for what, b, maps in cases]
 
 
 def roi_bound_ms(torch, dm, views, boxes, res, sampling) -> tuple:
@@ -672,18 +793,25 @@ def check_roi_align(torch, report: dict) -> dict:
     from vilbert_multitask_tpu_torch.detect import model as dm
 
     dev = torch.device("cuda")
-    _, views = roi_maps(torch, dev)
+    _, full = roi_maps(torch, dev)
+    maps_by_name = {"full": full, "C 255": [v[..., 1:] for v in full],
+                    "offset": [v[..., 1:253] for v in full]}
     strides = dm.FPN_STRIDES[:4]
     res, sampling = 7, 2
     rows = []
-    for what, boxes in roi_cases(torch, dev):
+    for what, boxes, maps in roi_cases(torch, dev):
+        views = maps_by_name[maps]
+        vec = dm.roi_vector_width(views)
+        if vec != (4 if maps == "full" else 1):
+            raise AssertionError(f"roi_align {what}: vector width {vec}")
         got = dm.roi_align(views, boxes, strides, res, sampling)
         ref = dm.roi_align_plain(views, boxes, strides, res, sampling)
         torch.cuda.synchronize()
         err = (got - ref).abs()
         used = (err / (ROI_ATOL + ROI_RTOL * ref.abs())).max().item()
         levels = torch.bincount(dm.fpn_level(boxes), minlength=4).tolist()
-        row = dict(what=what, R=boxes.shape[0], levels=levels,
+        row = dict(what=what, R=boxes.shape[0], C=views[0].shape[-1],
+                   vector_width=vec, levels=levels,
                    max_abs_err=err.max().item(),
                    max_rel_err=(err / ref.abs().clamp_min(1e-3)).max().item(),
                    tol_used=used, bit_equal=bool(err.max().item() == 0.0))
@@ -698,9 +826,10 @@ def check_roi_align(torch, report: dict) -> dict:
             row["bound_ms"], row["bound_by"] = roi_bound_ms(
                 torch, dm, views, boxes, res, sampling)
         rows.append(row)
-        log("roi_align %s: R=%d per level %s, max abs err %.3e (%.3f of "
-            "atol 1e-5 + rtol 1e-5)%s" % (
-                what, row["R"], levels, row["max_abs_err"], used,
+        log("roi_align %s: R=%d C=%d per level %s, %d channels a thread, "
+            "max abs err %.3e (%.3f of atol 1e-5 + rtol 1e-5)%s" % (
+                what, row["R"], row["C"], levels, vec, row["max_abs_err"],
+                used,
                 "" if "kernel_ms" not in row else
                 " | kernel_ms=%.5f (eager call %.5f) plain_ms=%.5f "
                 "bound_ms=%.6f (%s)" % (row["kernel_ms"],
@@ -710,6 +839,9 @@ def check_roi_align(torch, report: dict) -> dict:
         if not used <= 1.0:
             raise AssertionError(f"roi_align kernel error {err.max().item():.3e}"
                                  f" beyond atol 1e-5 + rtol 1e-5 ({what})")
+        if what.startswith("serving:") and not row["bit_equal"]:
+            raise AssertionError(f"roi_align serving shape not bit-equal to "
+                                 f"the plain version: {row['max_abs_err']}")
     report["roi_align_cases"] = rows
     return rows[0]
 
@@ -1149,7 +1281,7 @@ def profile_split(torch, ex, rgb) -> dict:
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     handwritten = {k: v[0] for k, v in by_name.items() if re.search(
-        r"nms_mask_kernel|nms_scan_kernel|roi_align_kernel", k)}
+        r"nms_[a-z_]+_kernel|roi_align_kernel", k)}
     return {"split_ms": dict(split), "device_busy_ms": busy,
             "profiled_wall_ms": wall_ms,
             "device_ops": sum(v[1] for v in by_name.values()),
@@ -1751,7 +1883,7 @@ def top1(bundle: dict, row: int):
 
 def tied_top1(bundle: dict, row: int) -> set:
     """The labels whose probability equals the first one's exactly: the
-    sort orders them, not the model (see ``same_top1``)."""
+    sort orders them, not the model."""
     val, idx = bundle["labels_top"]["vil_prediction"]
     return {int(i) for v, i in zip(val[row], idx[row]) if v == val[row, 0]}
 
@@ -2248,16 +2380,15 @@ def same_answer(got: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: {got!r} vs {want!r}")
 
 
-def same_top1(got: dict, want: dict, what: str) -> str:
-    """The criterion for a row decoded from another batch than ``want``'s
-    (a batched bf16 row rounds otherwise): the first answer, box or ranked
-    image identical, and the k-th confidence and score within
-    ``BATCHED_ROW``. Where either side's first entries tie exactly (the same
-    confidence and score: bf16 logits often do with random weights), the
-    order inside the tie is the sort's, not the model's, so the entries
-    tied first on one side must include the other side's first. Returns ""
-    when the whole order is identical too, else both orders with their
-    confidences (a swap of near-tied labels)."""
+def batched_order(got: dict, want: dict, what: str) -> str:
+    """A row decoded from another bucket than ``want``'s against ``want``
+    (``predict()``, bucket 1): the k-th confidence and score within
+    ``BATCHED_ROW``. The order is not held: the bf16 GEMMs round a row by
+    the bucket's shapes, and one bf16 step of a logit reorders the near-tied
+    labels of a random-weight head (``same_bucket_rows`` holds the row
+    exactly instead). Returns ("", False) when the whole order is
+    identical, else both orders with their confidences and whether the
+    first entry differs."""
     import numpy as np
 
     items = {"labels": "answers", "binary": "answers", "trinary": "answers",
@@ -2265,26 +2396,66 @@ def same_top1(got: dict, want: dict, what: str) -> str:
     key = {"answers": "answer", "boxes": "region_index",
            "ranking": "image"}[items]
     g, w = got[items], want[items]
-
-    def tied_first(xs: list) -> set:
-        rank = [f for f in ("confidence", "score") if f in xs[0]]
-        return {x[key] for x in xs
-                if rank and all(x[f] == xs[0][f] for f in rank)} | {
-                    xs[0][key]}
-
-    if len(g) != len(w) or (g[0][key] not in tied_first(w)
-                            and w[0][key] not in tied_first(g)):
-        raise AssertionError(f"{what}: top-1 {g[:1]} vs {w[:1]} (served "
-                             f"{g}, predict() {w})")
+    if len(g) != len(w):
+        raise AssertionError(f"{what}: served {g}, predict() {w}")
     for field in ("confidence", "score"):
         if field in w[0]:
             np.testing.assert_allclose(
                 [x[field] for x in g], [x[field] for x in w],
                 err_msg=f"{what}: {field} by rank", **BATCHED_ROW)
     if [x[key] for x in g] == [x[key] for x in w]:
-        return ""
+        return "", False
     pairs = lambda xs: [(x[key], x.get("confidence")) for x in xs]  # noqa
-    return f"{what}: served {pairs(g)} vs predict() {pairs(w)}"
+    return (f"{what}: served {pairs(g)} vs predict() {pairs(w)}",
+            g[0][key] != w[0][key])
+
+
+def request_key(req) -> tuple:
+    """What a prepared request computes on: its task, its token ids and the
+    bits of its image rows."""
+    import hashlib
+
+    import torch
+
+    rows = hashlib.sha1()
+    for a in (req.features.contiguous().view(torch.uint8).numpy(),
+              req.spatials, req.image_mask):
+        rows.update(a.tobytes())
+    return (req.spec.task_id, req.n_images, req.text.input_ids.tobytes(),
+            req.text.input_mask.tobytes(), req.text.segment_ids.tobytes(),
+            rows.hexdigest())
+
+
+def same_bucket_rows(calls: list) -> dict:
+    """Every served row of every recorded ``run_many`` call against its own
+    request run again on the same engine in a chunk of copies of itself:
+    the same bucket, the same offset, other neighbours. A row's numbers
+    depend on its request and on the bucket's shapes, never on the rows
+    beside it, so the two must be identical. Returns the served results'
+    JSON by ``request_key``."""
+    served: dict = {}
+    for c in calls:
+        eng, reqs, kw = c["engine"], c["reqs"], c["kw"]
+        plan = eng.chunk_plan([r.n_images for r in reqs],
+                              chunk_rows=kw.get("chunk_rows"))
+        for chunk in plan:
+            for offset, pos in enumerate(chunk):
+                req = reqs[pos]
+                if any(reqs[p].n_images != req.n_images for p in chunk):
+                    raise AssertionError(
+                        f"a served chunk mixes image counts "
+                        f"{[reqs[p].n_images for p in chunk]}: no chunk of "
+                        f"copies has its layout")
+                alone = eng.run_many([req] * len(chunk), **kw)[offset]
+                got = c["got"][pos].to_json()
+                if alone.to_json() != got:
+                    raise AssertionError(
+                        f"served row {offset} of a {len(chunk)}-request "
+                        f"chunk differs from its request at the same offset "
+                        f"in a chunk of its own copies: {got} vs "
+                        f"{alone.to_json()}")
+                served.setdefault(request_key(req), []).append(got)
+    return served
 
 
 def record_run_many(eng, calls: list) -> None:
@@ -2444,11 +2615,14 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
     → engine → result store + push hub. First 14 submits one at a time
     (each its own forward, at predict()'s bucket: answers must equal
     predict()'s), then a burst of 32 from 8 clients at once (the scheduler
-    batches it: held to ``same_top1`` against predict()), then scale-out
+    batches it: each frame must be exactly its own request's row at the
+    bucket it was served at, ``same_bucket_rows``, with confidences by rank
+    within ``BATCHED_ROW`` of predict()'s, ``batched_order``), then scale-out
     under load: 2 clients keep posting VQA submits while a second replica
     is built and captures its graphs beside the first, which goes on
     serving (``check_scale_out``). Every batch the scheduler dispatched is
-    replayed through ``run_many`` afterwards and must come out identical.
+    replayed through ``run_many`` afterwards and must come out identical,
+    and each served row must equal its request alone at the same bucket.
 
     The app runs with ``live_extract=True`` (a full-width seeded detector):
     after the 14 feature-file submits, 4 images that have no feature file
@@ -2631,7 +2805,8 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
     if len(rows) != len(sent):
         raise AssertionError(f"{len(rows)} ResultStore rows for "
                              f"{len(sent)} submits")
-    swaps, drift, gap = [], 0.0, math.inf
+    served_rows = same_bucket_rows(calls)
+    swaps, top1_moved, drift, gap = [], 0, 0.0, math.inf
     for i in sent:
         task_id, question, images = jobs[i]
         frame = frames[i][0]
@@ -2643,7 +2818,16 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
         if i in one_by_one:
             same_answer(got, want, what)
         else:
-            swap = same_top1(got, want, what)
+            own = [{k: v for k, v in row.items() if k in want}
+                   for row in served_rows.get(request_key(
+                       eng.prepare_from_store(task_id, question, images)),
+                       [])]
+            if got not in own:
+                raise AssertionError(
+                    f"{what}: the frame {got} is no served row of its own "
+                    f"request ({own})")
+            swap, moved = batched_order(got, want, what)
+            top1_moved += moved
             if want["kind"] == "labels":
                 # How far batching moves a probability, against how close
                 # predict()'s ranked labels sit: a swap needs drift > gap.
@@ -2694,9 +2878,11 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
         f"equal to predict(); a burst "
         f"of {len(burst)} from 8 clients in {makespan:.3f}s "
         f"({burst_forwards} forwards); {batched} batched submits (burst "
-        f"and scale-out) with top-1 equal to predict() (within an exact tie) and confidences "
-        f"within rtol {BATCHED_ROW['rtol']} / atol {BATCHED_ROW['atol']}, "
-        f"{batched - len(swaps)} in the same order (largest confidence "
+        f"and scale-out), each exactly its request's row at its bucket "
+        f"(against a chunk of its own copies) with confidences within rtol "
+        f"{BATCHED_ROW['rtol']} / atol {BATCHED_ROW['atol']} of predict()'s, "
+        f"{batched - len(swaps)} in predict()'s order, {top1_moved} with "
+        f"another first label (largest confidence "
         f"drift from predict() {drift:.3e}, smallest gap between adjacent "
         f"ranks in predict() {gap:.3e}); all {replayed} served "
         f"results identical to run_many of their batch replayed "
@@ -2710,6 +2896,8 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
         "burst": {"submits": len(burst), "forwards": burst_forwards,
                   "makespan_s": makespan},
         "batched_same_order": batched - len(swaps), "order_swaps": swaps,
+        "batched_top1_moved": top1_moved,
+        "batched_same_bucket_identical": batched,
         "confidence_drift_max": drift, "adjacent_rank_gap_min": gap,
         "replayed_identical": replayed, "batches": len(calls),
         "stop_s": stop_s, "healthz_ok": health.get("ok"),

@@ -153,6 +153,93 @@ def test_roi_align_with_levels_matches_jax(res, samp):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
+def _jax_level(boxes: np.ndarray) -> np.ndarray:
+    """The JAX model's level choice (vilbert_multitask_tpu/detect/model.py:
+    279-285, inline in ``FasterRCNN.__call__``), 0..3 for P2..P5."""
+    proposals = jnp.asarray(boxes)
+    area = ((proposals[:, 2] - proposals[:, 0])
+            * (proposals[:, 3] - proposals[:, 1]))
+    level = jnp.clip(
+        jnp.floor(4 + jnp.log2(jnp.sqrt(jnp.maximum(area, 1.0)) / 224.0)),
+        2, 5).astype(jnp.int32) - 2
+    return np.asarray(level)
+
+
+def test_fpn_level_matches_jax_at_the_power_of_two_boundaries():
+    """Boxes whose sqrt(area) / 224 is exactly 1, 2 and 4, and 1 and 8 ulps
+    either side (chip_smoke.py's level-boundary case, where the CUDA kernel
+    chooses the level itself): the same level as JAX's choice, and the
+    boundaries bite (8 ulps below 1 is P3, 1 and above P4, 2 and above
+    P5)."""
+    import chip_smoke
+
+    boxes, ratios = chip_smoke.level_boundary_boxes()
+    want = _jax_level(boxes)
+    got = pmodel.fpn_level(torch.from_numpy(boxes)).numpy()
+    np.testing.assert_array_equal(got, want)
+    by_ratio = dict(zip(ratios, got.tolist()))
+    assert by_ratio[1.0] == 2 and by_ratio[2.0] == 3 and by_ratio[4.0] == 3
+    assert min(r for r, lvl in by_ratio.items() if lvl == 2) < 1.0
+    assert set(got.tolist()) == {1, 2, 3}
+
+
+def _serving_views(channels: int = 8):
+    """(H, W, C) views of channels-last level maps of a 64 canvas."""
+    return [torch.zeros(1, channels, 64 // s, 64 // s).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)[0]
+        for s in pmodel.FPN_STRIDES[:4]]
+
+
+@pytest.mark.parametrize("case,width", [
+    ("channels_last_c8", 4), ("contiguous_c12", 4),
+    ("c_7", 1), ("channels_1_to_7", 1), ("base_4_bytes_off", 1),
+    ("column_stride_6", 1)])
+def test_roi_vector_width_follows_shape_and_address(case, width):
+    """The float4 instance only where every map's C, base and row and
+    column strides allow 16-byte loads; else the scalar one. Needs no
+    card."""
+    maps = {
+        "channels_last_c8": lambda: _serving_views(8),
+        "contiguous_c12": lambda: [torch.zeros(8, 8, 12) for _ in range(4)],
+        "c_7": lambda: _serving_views(7),
+        "channels_1_to_7": lambda: [v[..., 1:] for v in _serving_views(8)],
+        "base_4_bytes_off": lambda: [v[..., 1:5] for v in _serving_views(8)],
+        "column_stride_6": lambda: [torch.zeros(8, 8, 6)[..., :4]
+                                    for _ in range(4)],
+    }[case]()
+    assert pmodel.roi_vector_width(maps) == width
+
+
+@pytest.mark.parametrize("bad", ["float64", "samples_65", "sampling_0",
+                                 "boxes_65536", "channels_strided"])
+def test_roi_launch_check_rejects_what_the_kernel_cannot_take(bad):
+    """What the CUDA branch refuses before any launch: another dtype, more
+    than 64 sample points an axis, a grid row per box past 65535, level
+    maps without contiguous channels. Needs no card."""
+    maps, boxes, res, samp = _serving_views(), torch.zeros(3, 4), 7, 2
+    if bad == "float64":
+        boxes = boxes.double()
+    elif bad == "samples_65":
+        res, samp = 13, 5
+    elif bad == "sampling_0":
+        samp = 0
+    elif bad == "boxes_65536":
+        boxes = torch.zeros(1, 4).expand(65536, 4)
+    else:
+        maps = [torch.zeros(8, 8, 16)[..., ::2] for _ in range(4)]
+    with pytest.raises((TypeError, ValueError)):
+        pmodel._check_launchable_roi(maps, boxes, res, samp)
+
+
+def test_roi_launch_check_accepts_the_serving_shape():
+    """300 proposals, 7 x 7 bins, sampling 2, the 1344 canvas's P2..P5
+    views at 256 channels (shapes only: the maps are never read)."""
+    maps = [torch.empty(1344 // s, 1344 // s, 256)
+            for s in pmodel.FPN_STRIDES[:4]]
+    pmodel._check_launchable_roi(maps, torch.zeros(300, 4), 7, 2)
+    assert pmodel.roi_vector_width(maps) == 4
+
+
 def test_roi_align_reads_channels_last_maps_in_place():
     """The FPN's channels-last NCHW maps, permuted to (H, W, C), are views
     (no copy) and pool the same as contiguous copies."""

@@ -187,3 +187,142 @@ def test_wrapper_rejects_bad_inputs(bad):
         boxes, scores = boxes.to("meta"), scores.to("meta")
     with pytest.raises(ValueError):
         pnms.nms_mask(boxes, scores, **kw)
+
+
+def test_select_top_regions_with_zero_and_tied_scores_bit_equal_to_jax():
+    """A small selection (70 boxes x 40 classes and background) with the
+    degenerate inputs chip_smoke.py gives the kernel: flat softmax rows
+    (every class ties, and ties with the other flat boxes), scores that
+    underflow to exactly 0.0, and zero-width boxes."""
+    rng = np.random.default_rng(23)
+    boxes, _ = random_boxes(rng, 70)
+    boxes[::5, 2] = boxes[::5, 0]
+    logits = rng.normal(scale=2.0, size=(70, 41)).astype(np.float32)
+    logits[::3] = 0.0
+    logits[1::7, 1:15] = -1e4
+    scores = np.exp(logits - logits.max(axis=1, keepdims=True))
+    scores = (scores / scores.sum(axis=1, keepdims=True)).astype(np.float32)
+    assert (scores == 0.0).any()
+    want = [np.asarray(x) for x in jnms.select_top_regions(
+        jnp.asarray(boxes), jnp.asarray(scores), num_keep=20)]
+    got = [x.numpy() for x in pnms.select_top_regions(
+        torch.from_numpy(boxes), torch.from_numpy(scores), num_keep=20)]
+    names = ("keep_indices", "num_valid", "max_conf", "objects", "cls_prob")
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+# ----------------------------------------------------- the launch plan
+SERVING_PLANS = [(1600, 300, True), (5, 1000, False)]
+EDGE_PLANS = [(64, 1000, True), (40, 2100, True), (3, 2100, False),
+              (1, 1, True), (1, 1, False), (7, 64, True), (2, 65, False),
+              (100000, 300, True), (1, 8192, True), (65535, 8192, False)]
+
+
+@pytest.mark.parametrize("G,N,shared", SERVING_PLANS + EDGE_PLANS)
+def test_plan_fits_the_card_and_follows_the_shape(G, N, shared):
+    """csrc/nms.cu's launch numbers from the shape alone: a power-of-two
+    sort at least N long, the walk's shared memory within an H100 block's,
+    and for a shared box set one N x ceil(N/64) mask whatever G (up to 512
+    boxes beside each group's 2-byte order; above, staged in shared memory
+    exactly when it fits beside one group's keys)."""
+    plan = pnms.plan_launch(G, N, shared)
+    assert plan == pnms.plan_launch(G, N, shared)
+    words = -(-N // 64)
+    assert plan.words == words and plan.shared == shared
+    assert plan.sort_len >= N and plan.sort_len & (plan.sort_len - 1) == 0
+    assert 0 < plan.walk_smem <= pnms.SMEM_PER_BLOCK
+    assert 8 * plan.sort_len <= pnms.SMEM_PER_BLOCK  # the own-box sort
+    mask = 8 * N * words
+    assert plan.segments == (shared and plan.sort_len <= 512)
+    if plan.segments:  # one mask for every group, then each group's order
+        assert plan.staged and plan.groups_per_block == 2
+        orders = 2 * 32 * -(-G // 32) * N  # whole blocks of 32 groups
+        assert mask <= plan.scratch_bytes - orders < mask + 256
+        assert plan.walk_smem == mask + 8 * 32 * words + 2 * 32 * N
+        assert plan.kernels == ("nms_sort_kernel",
+                                "nms_walk_segments_kernel")
+    elif shared:  # one mask for every group, nothing per group
+        assert plan.scratch_bytes == mask
+        assert 1 <= plan.groups_per_block <= min(G, 8)
+        per_group = 8 * (plan.sort_len + 1 + words)
+        assert plan.staged == (mask + per_group <= pnms.SMEM_PER_BLOCK)
+        assert plan.walk_smem == (mask if plan.staged else 0) + (
+            plan.groups_per_block * per_group)
+        assert plan.kernels == ("nms_pairs_kernel", "nms_walk_shared_kernel")
+    else:
+        assert not plan.staged and plan.groups_per_block == 1
+        assert plan.scratch_bytes >= 4 * G * N + G * mask
+        assert len(plan.kernels) == 3
+
+
+def test_plan_of_the_serving_calls():
+    """The selection makes one 12 KB mask for its 1600 classes, sorts
+    them 2 a block and walks them 8 lanes each; the RPN sorts 1024 keys
+    per level."""
+    sel = pnms.plan_launch(1600, 300, True)
+    assert sel.segments and sel.groups_per_block == 2 and sel.sort_len == 512
+    assert sel.scratch_bytes == 12032 + 2 * 1600 * 300
+    rpn = pnms.plan_launch(5, 1000, False)
+    assert rpn.sort_len == 1024 and rpn.words == 16
+
+
+@pytest.mark.parametrize("G,N,shared", [(1, 0, True), (1, 8193, True),
+                                        (1, 8193, False), (0, 10, True),
+                                        (65536, 10, False)])
+def test_plan_rejects_shapes_the_kernel_does_not_take(G, N, shared):
+    with pytest.raises(ValueError):
+        pnms.plan_launch(G, N, shared)
+
+
+# ------------------------------------- chip_smoke.py's IoU count (bound)
+def _walk_pairs(boxes, scores, keep, valid):
+    """{(group, box, kept box before it)} by a plain loop over the plain
+    order."""
+    b, s, n_valid, _ = pnms._batched(boxes, scores, valid)
+    G, N = s.shape
+    n_valid = torch.full((G,), N) if n_valid is None else n_valid
+    order = pnms._order(s, n_valid)
+    pairs = set()
+    for g in range(G):
+        kept_before = []
+        for i in range(int(n_valid[g])):
+            box = int(order[g, i])
+            pairs.update((g, box, j) for j in kept_before)
+            if keep[g, box]:
+                kept_before.append(box)
+    return pairs
+
+
+@pytest.mark.parametrize("valid", [None, [40, 17, 0, 40, 3]])
+def test_iou_count_of_a_shared_set_counts_each_pair_once(valid):
+    """For boxes shared by every group the bound counts the distinct pairs
+    the groups' walks need, at most N(N-1)/2, not one IoU per group."""
+    import chip_smoke
+
+    rng = np.random.default_rng(31)
+    boxes, _ = random_boxes(rng, 40)
+    scores = torch.from_numpy(rng.random((5, 40)).astype(np.float32))
+    b = torch.from_numpy(boxes).expand(5, 40, 4)
+    keep = pnms.nms_mask_plain(b, scores, 0.5, valid=valid)
+    pairs = _walk_pairs(b, scores, keep, valid)
+    distinct = {frozenset((i, j)) for _, i, j in pairs}
+    got = chip_smoke.nms_iou_count(torch, b, scores, keep, valid)
+    assert got == len(distinct) <= 40 * 39 // 2
+    assert got < len(pairs)  # groups share IoUs
+
+
+def test_iou_count_of_own_boxes_is_one_per_walk_step():
+    """Own boxes per group: every group's (box, kept box before it) pair
+    counts, as before the shared-set change."""
+    import chip_smoke
+
+    rng = np.random.default_rng(37)
+    boxes = torch.from_numpy(np.stack([random_boxes(rng, 50)[0]
+                                       for _ in range(3)]))
+    scores = torch.from_numpy(rng.random((3, 50)).astype(np.float32))
+    valid = [50, 31, 2]
+    keep = pnms.nms_mask_plain(boxes, scores, 0.7, valid=valid)
+    got = chip_smoke.nms_iou_count(torch, boxes, scores, keep,
+                                   torch.tensor(valid))
+    assert got == len(_walk_pairs(boxes, scores, keep, valid)) > 0

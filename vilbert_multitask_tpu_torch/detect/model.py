@@ -20,7 +20,8 @@ worker.py:78-89,192-193. The same graph, on the same fixed canvas:
 - every ``lax.top_k`` is a stable descending sort (:func:`..ops.nms.top_k`);
 - NMS is :func:`..ops.nms.nms_mask`, one batched call for the five RPN
   levels; ROIAlign is :func:`roi_align`, one call for the 300 proposals
-  over P2..P5. On CUDA tensors each launches its hand-written kernel
+  over P2..P5 (the kernel chooses each box's level as :func:`fpn_level`
+  does). On CUDA tensors each launches its hand-written kernel
   (``csrc/nms.cu``, ``csrc/roi_align.cu``); on CPU tensors each runs its
   plain version.
 
@@ -295,25 +296,64 @@ def roi_align_plain(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
 def _bind_roi(lib: ctypes.CDLL):
     fn = lib.vmt_roi_align
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p]
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, p, i64, i64, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+ROI_VECTOR_BYTES = 16  # the float4 instance's load and store
+ROI_MAX_SAMPLES = 64  # resolution * sampling per axis (csrc/roi_align.cu)
+ROI_MAX_BOXES = 65535  # one grid row of blocks per box
+_INT32_LIMIT = 2 ** 31 - 1  # the kernel's 32-bit indices
+
+
+def roi_vector_width(feats: Sequence[torch.Tensor]) -> int:
+    """Channels per thread of ``csrc/roi_align.cu`` for these (H, W, C)
+    level maps, from their shapes and addresses alone: 4 (16-byte loads)
+    when C % 4 == 0 and every map's base, row and column strides lie on
+    16 bytes, else 1 (the scalar instance). Needs no card."""
+    step = ROI_VECTOR_BYTES // 4
+    for f in feats:
+        if (f.shape[-1] % step or f.data_ptr() % ROI_VECTOR_BYTES
+                or f.stride(0) % step or f.stride(1) % step):
+            return 1
+    return step
+
+
+def _check_launchable_roi(feats, boxes, resolution: int,
+                          sampling: int) -> None:
+    """Raise unless ``csrc/roi_align.cu`` can read these maps and boxes
+    (checked by :func:`_check_roi`) as they lie. Needs no card."""
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"the ROIAlign kernel takes float32, got "
+                        f"{boxes.dtype}")
+    if not (1 <= resolution * sampling <= ROI_MAX_SAMPLES) or sampling < 1:
+        raise ValueError(f"the ROIAlign kernel takes 1 <= resolution x "
+                         f"sampling <= {ROI_MAX_SAMPLES}, got {resolution} x "
+                         f"{sampling}")
+    R, C = boxes.shape[0], feats[0].shape[-1]
+    if R > ROI_MAX_BOXES or R * resolution ** 2 * C > _INT32_LIMIT:
+        raise ValueError(f"the ROIAlign kernel takes R <= {ROI_MAX_BOXES} "
+                         f"boxes and fewer than 2^31 output elements, got "
+                         f"R={R}, C={C}")
+    for f in feats:
+        H, W, _ = f.shape
+        if f.stride(2) != 1:
+            raise ValueError("the ROIAlign kernel reads level maps with "
+                             "contiguous channels (channels-last)")
+        if (H - 1) * f.stride(0) + (W - 1) * f.stride(1) + C > _INT32_LIMIT:
+            raise ValueError(f"a level map of {tuple(f.shape)} with strides "
+                             f"{f.stride()} is beyond the kernel's 32-bit "
+                             f"indices")
 
 
 def _launch_roi(feats, boxes, strides, resolution, sampling, *,
                 lib: ctypes.CDLL = None) -> torch.Tensor:
     """Launch ``csrc/roi_align.cu`` on CUDA tensors checked by
-    :func:`roi_align`; counts nothing."""
-    if boxes.dtype != torch.float32:
-        raise TypeError(f"the ROIAlign kernel takes float32, got "
-                        f"{boxes.dtype}")
-    for f in feats:
-        if f.stride(2) != 1:
-            raise ValueError("the ROIAlign kernel reads level maps with "
-                             "contiguous channels (channels-last)")
-    boxes = boxes.contiguous()
-    level = fpn_level(boxes).to(torch.int32)
+    :func:`roi_align` (the kernel chooses each box's level); counts
+    nothing."""
+    _check_launchable_roi(feats, boxes, resolution, sampling)
     R, C = boxes.shape[0], feats[0].shape[-1]
     out = torch.empty((R, resolution, resolution, C), dtype=torch.float32,
                       device=boxes.device)
@@ -330,8 +370,9 @@ def _launch_roi(feats, boxes, strides, resolution, sampling, *,
         arr(ctypes.c_longlong, [f.stride(0) for f in feats]),
         arr(ctypes.c_longlong, [f.stride(1) for f in feats]),
         arr(ctypes.c_float, [float(s) for s in strides]),
-        boxes.data_ptr(), level.data_ptr(), R, C, resolution, sampling,
-        out.data_ptr(), torch.cuda.current_stream(boxes.device).cuda_stream)
+        boxes.data_ptr(), boxes.stride(0), boxes.stride(1), R, C,
+        resolution, sampling, roi_vector_width(feats), out.data_ptr(),
+        torch.cuda.current_stream(boxes.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {rc}")
     return out

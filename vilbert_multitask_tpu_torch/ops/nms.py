@@ -11,8 +11,12 @@ inside the per-class selection loop of worker.py:123-176.
   ``(G, N, 4)`` or one shared ``(N, 4)`` set (passed on as a stride-0 view,
   never copied), and an optional per-group count of valid boxes (the RPN's
   levels hold different counts). On a CUDA tensor it launches
-  ``csrc/nms.cu`` (one call, counted in ``nms_mask.launches``: the IoU
-  bitmask kernel, then the greedy walk); anything else raises. On a CPU
+  ``csrc/nms.cu`` (one call, counted in ``nms_mask.launches``), which
+  orders each group itself and reads boxes and scores through their
+  strides; :func:`plan_launch` picks its route and launch numbers from the
+  shape alone (a shared box set: one IoU bitmask for every group, then a
+  sort-and-walk kernel; own boxes: a sort, a per-group bitmask in sorted
+  order, a walk 64 boxes at a time). Anything else raises. On a CPU
   tensor it calls :func:`nms_mask_plain`.
 - :func:`nms_mask_plain` is the same greedy walk in torch ops, vectorised
   over groups with a Python loop over the sorted boxes, as the
@@ -25,6 +29,7 @@ inside the per-class selection loop of worker.py:123-176.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import Optional, Sequence, Tuple, Union
 
@@ -59,7 +64,8 @@ def box_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
 
 def _batched(boxes: torch.Tensor, scores: torch.Tensor, valid: Valid):
     """(boxes (G, N, 4) view, scores (G, N), valid (G,) int64 on the
-    scores' device, whether the caller passed 1-D scores)."""
+    scores' device or None for every box, whether the caller passed 1-D
+    scores)."""
     single = scores.dim() == 1
     s = scores[None] if single else scores
     if s.dim() != 2:
@@ -73,10 +79,10 @@ def _batched(boxes: torch.Tensor, scores: torch.Tensor, valid: Valid):
                          f"{tuple(scores.shape)}, got {tuple(boxes.shape)}")
     if boxes.device != s.device:
         raise ValueError(f"boxes on {boxes.device}, scores on {s.device}")
-    if valid is None:
-        n_valid = torch.full((G,), N, dtype=torch.int64, device=s.device)
-    else:
-        n_valid = torch.as_tensor(valid, dtype=torch.int64).to(s.device)
+    n_valid = None
+    if valid is not None:
+        n_valid = torch.as_tensor(valid, dtype=torch.int64).to(
+            s.device).contiguous()
         if tuple(n_valid.shape) != (G,):
             raise ValueError(f"valid must hold one count per group ({G}), "
                              f"got {tuple(n_valid.shape)}")
@@ -101,6 +107,8 @@ def nms_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
     :func:`nms_mask`."""
     b, s, n_valid, single = _batched(boxes, scores, valid)
     G, N = s.shape
+    if n_valid is None:
+        n_valid = torch.full((G,), N, dtype=torch.int64, device=s.device)
     order = _order(s, n_valid)
     thresh = torch.tensor(iou_threshold, dtype=torch.float32)
     shared = G == 1 or b.stride(0) == 0
@@ -116,34 +124,102 @@ def nms_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
     return kept[0] if single else kept
 
 
+# csrc/nms.cu's limits: boxes per group (128 mask words of 64) and the
+# dynamic shared memory of one H100 block.
+MAX_BOXES = 8192
+SMEM_PER_BLOCK = 232448
+MAX_GROUPS_PER_BLOCK = 8  # warps of the shared-set walk, one group each
+SORT_GROUPS_PER_BLOCK = 2  # warps of the shared-set sort kernel (kSortThreads)
+SEGMENT_MAX_BOXES = 512  # shared sets walked 8 lanes a group (8 mask words)
+
+
+@dataclasses.dataclass(frozen=True)
+class NmsPlan:
+    """How ``csrc/nms.cu`` runs one call, from the shape alone.
+
+    ``shared``: one box set for every group (group stride 0), its IoU
+    bitmask made once, in the original order. Up to 512 boxes
+    (``segments``) a sort kernel orders each group (a warp a group,
+    ``groups_per_block`` warps a block; its first blocks make the bitmask)
+    and a walk kernel gives each group 8 lanes, one mask word each; above
+    that, one kernel sorts and walks each group with a warp, staging the
+    mask in shared memory when it fits (``staged``). Otherwise each group
+    has its own boxes: a sort kernel, the group's bitmask in its sorted
+    order, and a walk of 64 boxes at a time. ``sort_len`` keys are sorted
+    per group (a power of two ≥ N and ≥ 32); ``walk_smem`` is the dynamic
+    shared memory of the walk block and ``scratch_bytes`` what the wrapper
+    allocates for the masks and orders."""
+
+    shared: bool
+    segments: bool
+    words: int
+    sort_len: int
+    groups_per_block: int
+    staged: bool
+    walk_smem: int
+    scratch_bytes: int
+    kernels: Tuple[str, ...]
+
+
+def _aligned(n_bytes: int) -> int:
+    return -(-n_bytes // 256) * 256
+
+
+def plan_launch(G: int, N: int, shared: bool) -> NmsPlan:
+    """The launch of ``G`` groups of ``N`` boxes (see :class:`NmsPlan`);
+    raises ``ValueError`` for a shape the kernel does not take."""
+    if not (1 <= N <= MAX_BOXES) or G < 1 or (not shared and G > 65535):
+        raise ValueError(f"the NMS kernel takes 1 <= N <= {MAX_BOXES} boxes "
+                         f"and G >= 1 groups (<= 65535 with own boxes), got "
+                         f"G={G} N={N}")
+    words = -(-N // 64)
+    sort_len = max(32, 1 << (N - 1).bit_length())
+    mask = 8 * N * words
+    if shared and sort_len <= SEGMENT_MAX_BOXES:
+        return NmsPlan(True, True, words, sort_len, SORT_GROUPS_PER_BLOCK,
+                       True, mask + 8 * 32 * words + 2 * 32 * N,
+                       _aligned(mask) + 2 * 32 * -(-G // 32) * N,
+                       ("nms_sort_kernel", "nms_walk_segments_kernel"))
+    if shared:
+        per_group = 8 * (sort_len + 1 + words)  # sorted keys, kept words
+        staged = mask + per_group <= SMEM_PER_BLOCK
+        room = SMEM_PER_BLOCK - (mask if staged else 0)
+        groups = min(MAX_GROUPS_PER_BLOCK, room // per_group, G)
+        return NmsPlan(True, False, words, sort_len, groups, staged,
+                       (mask if staged else 0) + groups * per_group, mask,
+                       ("nms_pairs_kernel", "nms_walk_shared_kernel"))
+    return NmsPlan(False, False, words, sort_len, 1, False,
+                   8 * (64 + 2) * words, _aligned(4 * G * N) + G * mask,
+                   ("nms_order_kernel", "nms_sorted_pairs_kernel",
+                    "nms_walk_own_kernel"))
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.vmt_nms
     if fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i64, i64, i64, p, p, i, i, ctypes.c_float, p, p, p]
+        fn.argtypes = [p, i64, i64, i64, p, i64, i64, p, i, i,
+                       ctypes.c_float, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(b: torch.Tensor, s: torch.Tensor, n_valid: torch.Tensor,
+def _launch(b: torch.Tensor, s: torch.Tensor, valid: Optional[torch.Tensor],
             iou_threshold: float, *, lib: ctypes.CDLL = None) -> torch.Tensor:
-    """Launch ``csrc/nms.cu`` on CUDA tensors checked by :func:`nms_mask`;
+    """Launch ``csrc/nms.cu`` on CUDA tensors checked by :func:`nms_mask`
+    (``valid`` an int64 count per group on the card, or None for all);
     returns the (G, N) keep mask. Counts nothing."""
-    lib = lib or _build.load("nms")
     G, N = s.shape
-    max_boxes = lib.vmt_nms_max_boxes()
-    if N > max_boxes or G > 65535:
-        raise ValueError(f"the NMS kernel takes N <= {max_boxes} boxes and "
-                         f"G <= 65535 groups, got G={G} N={N}")
-    order = _order(s, n_valid).contiguous()
-    valid32 = n_valid.to(torch.int32)
-    words = (N + 63) // 64
-    mask = torch.empty((G, N, words), dtype=torch.int64, device=s.device)
+    plan = plan_launch(G, N, b.stride(0) == 0)
+    lib = lib or _build.load("nms")
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=s.device)
     keep = torch.empty((G, N), dtype=torch.bool, device=s.device)
-    sg, sn, sc = b.stride()
-    rc = _bind(lib)(b.data_ptr(), sg, sn, sc, order.data_ptr(),
-                    valid32.data_ptr(), G, N, float(iou_threshold),
-                    mask.data_ptr(), keep.data_ptr(),
+    rc = _bind(lib)(b.data_ptr(), *b.stride(), s.data_ptr(), *s.stride(),
+                    None if valid is None else valid.data_ptr(), G, N,
+                    float(iou_threshold), plan.sort_len,
+                    plan.groups_per_block, int(plan.staged),
+                    scratch.data_ptr(), keep.data_ptr(),
                     torch.cuda.current_stream(s.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: cudaError {rc}")
