@@ -133,6 +133,35 @@ cli. ``python -m vilbert_multitask_tpu_torch.evals.harness --task vqa``
    ``/healthz``, stores an answer to a feature-file submit and to an image
    uploaded over ``/upload_image/``, and exits 0 on SIGTERM (the process
    is killed if anything fails);
+   Then ``python -m vilbert_multitask_tpu_torch.serve.remote --url ...
+   --features <dir> --checkpoint <phase 4's weights>`` in its own process
+   drains an in-process web host with no engine (``ApiServer`` over
+   ``DurableQueue`` + ``ResultStore`` + ``PushHub``): four submits one at
+   a time, each one terminal frame and one stored row, answers equal to
+   ``predict()`` of phase 4's engine; a wrong worker token is refused;
+   exit 0 on SIGTERM;
+train. training (no kernel: the trainer's model runs dense attention, and
+   ``flash_cross_attention`` refuses a tensor that requires grad on the
+   card): 3 f32 steps of a full-width model cut to 2 text layers, 1 visual
+   and 1 bridge (dropout and TF32 off) on the card and on the CPU from the
+   same weights and batch, held as ``TRAIN_PARITY_*`` says (the first
+   step's gradients compared leaf by leaf in f64, and a TF32-on control
+   run recorded); then
+   ``ViLBertConfig()`` under bf16 autocast over f32 parameters, seeded
+   weights, batch 8, through ``Trainer`` and ``MultiTaskSampler`` over
+   synthetic vqa, tri, grounding, binary, retrieval and pretrain data for
+   30 steps: 0 ``flash_attn`` launches, every loss finite, the step time
+   (p50 of the synchronized wall per step) and rows/s, the peak of
+   ``max_memory_allocated``, two snapshots kept; the newest restored into
+   a fresh Trainer bit-equal to the saved state, and the next 3 steps'
+   losses within ``TRAIN_RESUME_RTOL`` of the uninterrupted run's; the save
+   and restore seconds; ``EvalHook``, its bf16 graph engine built on the
+   initial weights and given the trained ones (18 ``flash_attn`` launches
+   for its one forward), scoring and answering as a freshly built engine
+   on the trained parameters; ``python -m
+   vilbert_multitask_tpu_torch.train.loop --steps 4 --batch 2 --out <dir>``
+   exits 0 in its own process; and each head's loss falls on a fixed
+   batch of its own repeated about 10 times;
 9. a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2342,6 +2371,635 @@ def check_cli_entry_points(torch, report: dict, eng, root: str,
                      "onboard_s": onboard_s}
 
 
+# -------------------------------------------------------------- phase train
+# Card against CPU, 3 f32 steps of a full-width, reduced-depth model: the
+# two sides differ in summation order only (TF32 off). Gradients and
+# moments agree to f32 rounding carried through the backward (~2e-6 of
+# each leaf's norm); Adam normalises each element's gradient, so an element
+# whose gradient is near its rounding (and the parameters a softmax is
+# invariant to: the attention key biases, vil_logit.bias under the
+# contrastive loss) moves by up to the rate per step on one side and not
+# the other. The schedule's first rate is 0, so steps 1 and 2 start from
+# equal parameters: their grad norms (accumulated in f64, rounded to f32;
+# 7.8e-8 apart in f64 at the first step on an H100) are held within
+# TRAIN_PARITY_RTOL, step 3's, from parameters one update apart, within
+# TRAIN_PARITY_RTOL_UPDATED. Each head's loss is a short sum of terms that
+# carry the forward's f32 rounding (~1e-6 relative): held within
+# TRAIN_PARITY_LOSS_RTOL at every step. Every parameter within 0.1 x the
+# rate per step (those invariant ones within the rate per step), and at
+# most 0.1% of the elements beyond 1e-6. The first step's gradients of the
+# two sides are compared leaf by leaf in f64, and a control run on the card
+# with TF32 on reads how far a lower-precision product moves the grad norm
+# and the losses.
+TRAIN_PARITY_LR = 1e-4
+TRAIN_PARITY_STEPS = 3
+TRAIN_PARITY_RTOL = 1e-6
+TRAIN_PARITY_RTOL_UPDATED = 1e-4
+TRAIN_PARITY_LOSS_RTOL = 1e-5
+TRAIN_HEADS = ("vqa", "tri", "grounding", "binary", "retrieval", "pretrain")
+TRAIN_BATCH = 8
+TRAIN_STEPS = 30
+TRAIN_FIXED_REPEATS = 10
+TRAIN_CONTINUE_STEPS = 3
+# Losses of the steps after a restore against the uninterrupted run: the
+# states are bit-equal, the batches and dropout masks the same, and only
+# the card's nondeterministic reductions (atomics) differ.
+TRAIN_RESUME_RTOL = 1e-3
+# EvalHook's engine after ``load_params`` against a fresh engine on the same
+# parameters: the same graphs on the same inputs (equal so far); the
+# steps must move its bundle by more than 10x this.
+EVAL_RELOAD_ATOL = 1e-3
+
+
+def _zero_gradient(name: str) -> bool:
+    return name.endswith(("key.bias", "key1.bias", "key2.bias",
+                          "vil_logit.bias"))
+
+
+def _all_heads_batch(cfg, batch: int) -> dict:
+    """One synthetic batch carrying every head's targets (the pretraining
+    batch's masked inputs and the other heads' labels)."""
+    from vilbert_multitask_tpu_torch.train.data import SyntheticTaskData
+
+    out = SyntheticTaskData("pretrain", cfg, seed=11).batch(batch)
+    for head in ("vqa", "gqa", "tri", "binary", "grounding"):
+        b = SyntheticTaskData(head, cfg, seed=11).batch(batch)
+        out.update({k: v for k, v in b.items() if k not in out})
+    return out
+
+
+class _FirstGrads:
+    """An optimizer that keeps a host copy of the first step's raw
+    gradients and then applies the wrapped update."""
+
+    def __init__(self, tx):
+        self.tx = tx
+        self.grads: dict = {}
+
+    def update(self, state, grads):
+        if not self.grads:
+            self.grads = {k: g.detach().to("cpu", copy=True)
+                          for k, g in grads.items()}
+        return self.tx.update(state, grads)
+
+
+def _leaf_gap(torch, card: dict, cpu: dict, top: int = 6) -> dict:
+    """Where two sides' first-step gradients differ, in f64 on the host:
+    the global norms, each leaf's share of ``|g_card|^2 - |g_cpu|^2``, and
+    for the leading leaves their norms, ``|g_card - g_cpu| / |g_cpu|``, the
+    scale that best maps the CPU's gradient onto the card's (``<g_card,
+    g_cpu> / |g_cpu|^2``) and what that scale leaves over."""
+    rows = {}
+    for k, b in cpu.items():
+        a, b = card[k].double(), b.double()
+        nb = float(torch.linalg.vector_norm(b))
+        na = float(torch.linalg.vector_norm(a))
+        dot = float((a * b).sum())
+        scale = dot / nb ** 2 if nb else 0.0
+        rows[k] = {"leaf": k, "norm_cpu": nb, "norm_card": na,
+                   "delta_sq": na ** 2 - nb ** 2,
+                   "diff_rel": (float(torch.linalg.vector_norm(a - b)) / nb
+                                if nb else 0.0),
+                   "scale_minus_1": scale - 1.0,
+                   "residual_rel": (float(torch.linalg.vector_norm(
+                       a - scale * b)) / nb if nb else 0.0)}
+    total = sum(r["delta_sq"] for r in rows.values())
+    for r in rows.values():
+        r["share"] = r["delta_sq"] / total if total else 0.0
+    big = [r for r in rows.values() if r["norm_cpu"] > 1e-3]
+    return {
+        "norm_card_f64": sum(r["norm_card"] ** 2
+                             for r in rows.values()) ** 0.5,
+        "norm_cpu_f64": sum(r["norm_cpu"] ** 2 for r in rows.values()) ** 0.5,
+        "delta_sq_norm": total,
+        "by_share": sorted(rows.values(),
+                           key=lambda r: -abs(r["delta_sq"]))[:top],
+        "by_diff": sorted(big, key=lambda r: -r["diff_rel"])[:top]}
+
+
+def check_train_parity(torch, report: dict) -> None:
+    """3 steps of the full-width model at depth 2 text / 1 visual / 1
+    bridge, f32, dropout off, TF32 off, on the card and on the CPU in this
+    process from the same weights and batch: parameters and grad norm held
+    as TRAIN_PARITY_* says. Each leaf's gradient norm at the first step is
+    recorded on both sides, and a control run on the card with TF32 on."""
+    import dataclasses
+
+    from vilbert_multitask_tpu_torch.config import (
+        FrameworkConfig,
+        ViLBertConfig,
+    )
+    from vilbert_multitask_tpu_torch.engine.runtime import init_state_dict
+    from vilbert_multitask_tpu_torch.models.vilbert import ViLBertForVLTasks
+    from vilbert_multitask_tpu_torch.train import losses, step
+
+    mcfg = ViLBertConfig(num_hidden_layers=2, v_num_hidden_layers=1,
+                         t_biattention_id=(1,), v_biattention_id=(0,))
+    cfg = dataclasses.replace(FrameworkConfig(), model=mcfg)
+    weights = init_state_dict(mcfg, seed=3)
+    batch = _all_heads_batch(cfg, 4)
+    heads = ("vqa", "gqa", "binary", "tri", "grounding", "retrieval", "mlm",
+             "mrm")
+    runs = {}
+    for side, dev, tf32 in (("cuda", "cuda", False), ("cpu", "cpu", False),
+                            ("cuda_tf32", "cuda", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        model = ViLBertForVLTasks(mcfg)
+        model.load_state_dict(weights, strict=True)
+        model.to(dev).eval()
+        tx = step.default_optimizer(learning_rate=TRAIN_PARITY_LR,
+                                    warmup_steps=1, total_steps=50)
+        state = step.create_train_state(model, tx)
+        first = _FirstGrads(tx)
+        fn = step.make_train_step(model, first,
+                                  losses.LossConfig(heads=heads))
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(TRAIN_PARITY_STEPS):
+            state, m = fn(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[side] = (state, metrics, time.perf_counter() - t0,
+                      first.grads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (gs, gm, g_s, g_leaf), (cs, cm, c_s, c_leaf) = runs["cuda"], runs["cpu"]
+    tm = runs.pop("cuda_tf32")[1]
+
+    def gaps(ms):  # per step, each metric's relative gap to the CPU's
+        return [{k: abs(a[k] - b[k]) / max(abs(a[k]), abs(b[k]), 1e-30)
+                 for k in b} for a, b in zip(ms, cm)]
+
+    gap, gap_tf32 = gaps(gm), gaps(tm)
+    log(f"train parity: relative gaps card / TF32 card against CPU, per "
+        f"step: " + "; ".join(
+            ", ".join(f"{k} {g[k]:.3g}/{t[k]:.3g}" for k in sorted(g))
+            for g, t in zip(gap, gap_tf32)))
+    for i, g in enumerate(gap):
+        for k, v in g.items():
+            rtol = (TRAIN_PARITY_LOSS_RTOL if k != "grad_norm"
+                    else TRAIN_PARITY_RTOL if i < 2
+                    else TRAIN_PARITY_RTOL_UPDATED)
+            if v > rtol:
+                raise AssertionError(
+                    f"train parity step {i + 1} {k}: card {gm[i][k]} CPU "
+                    f"{cm[i][k]} ({v:.3g} > rtol {rtol})")
+    far = total = 0
+    worst = 0.0
+    lr_steps = TRAIN_PARITY_LR * TRAIN_PARITY_STEPS
+    for k, p in cs.params.items():
+        d = (gs.params[k].detach().cpu() - p.detach()).abs()
+        limit = lr_steps if _zero_gradient(k) else 0.1 * lr_steps
+        if float(d.max()) > limit:
+            raise AssertionError(f"train parity {k}: max |card - CPU| "
+                                 f"{float(d.max())} > {limit}")
+        if not _zero_gradient(k):
+            far += int((d > 1e-6).sum())
+            total += d.numel()
+            worst = max(worst, float(d.max()))
+    if far > 1e-3 * total:
+        raise AssertionError(f"train parity: {far} of {total} parameter "
+                             f"elements beyond 1e-6")
+    n_params = sum(p.numel() for p in cs.params.values())
+
+    leaf_gap = _leaf_gap(torch, g_leaf, c_leaf)
+    log(f"train parity: {n_params} parameters (depth 2/1/1, full widths), "
+        f"{TRAIN_PARITY_STEPS} f32 steps card {g_s:.2f}s CPU {c_s:.2f}s; "
+        f"grad norms card {[m['grad_norm'] for m in gm]} CPU "
+        f"{[m['grad_norm'] for m in cm]}; max |d param| {worst:.3g}, "
+        f"{far} of {total} elements beyond 1e-6")
+    log(f"train parity: first step in f64, grad norms card "
+        f"{leaf_gap['norm_card_f64']:.10g} CPU {leaf_gap['norm_cpu_f64']:.10g};"
+        f" leaves by share of |g_card|^2 - |g_cpu|^2: "
+        + ", ".join(f"{e['leaf']} {e['share']:.3f} (|d|/|g| "
+                    f"{e['diff_rel']:.3g}, scale-1 {e['scale_minus_1']:.3g}, "
+                    f"residual {e['residual_rel']:.3g})"
+                    for e in leaf_gap["by_share"][:4]))
+    report["train_parity"] = {
+        "params": n_params, "grad_norm_card": [m["grad_norm"] for m in gm],
+        "grad_norm_cpu": [m["grad_norm"] for m in cm],
+        "grad_norm_card_tf32": [m["grad_norm"] for m in tm],
+        "rel_gap": gap, "rel_gap_tf32": gap_tf32,
+        "loss_card": [m["loss/total"] for m in gm],
+        "loss_cpu": [m["loss/total"] for m in cm],
+        "loss_card_tf32": [m["loss/total"] for m in tm],
+        "first_step_leaves": leaf_gap,
+        "max_abs_param_diff": worst, "elements_beyond_1e-6": far,
+        "elements": total}
+
+
+def _eval_bundle(eng, examples: list) -> list:
+    """The float leaves of ``eng``'s decode bundle for the VQA
+    ``examples`` packed as the eval harness packs them (one chunk)."""
+    import numpy as np
+
+    reqs = [eng.prepare_from_store(1, e["question"], [e["image"]])
+            for e in examples]
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+        elif np.issubdtype(np.asarray(node).dtype, np.floating):
+            leaves.append(np.asarray(node))
+
+    walk(eng._dispatch_many(reqs).fetch())
+    return leaves
+
+
+def _timed_steps(torch, trainer, times: list) -> None:
+    """Time each of ``trainer``'s steps on the synchronized wall clock."""
+    make = trainer._step_for
+
+    def step_for(head):
+        fn = make(head)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    trainer._step_for = step_for
+
+
+def _train_states_equal(torch, a, b) -> bool:
+    return (a.step == b.step
+            and all(torch.equal(getattr(a, w)[k], getattr(b, w)[k])
+                    for w in ("params", "mu", "nu")
+                    for k in getattr(a, w))
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def check_train(torch, report: dict, root: str, state: str) -> dict:
+    """The training path at full width (``ViLBertConfig()``, bf16 autocast
+    over f32 parameters, seeded weights, batch 8) through ``Trainer`` and
+    ``MultiTaskSampler`` over synthetic vqa, tri, grounding, binary,
+    retrieval and pretrain data: no ``flash_attn`` launch, finite losses,
+    each head's loss falling on a fixed batch, the step time, a snapshot
+    restored bit-equal into a fresh Trainer and going on like the
+    uninterrupted run, ``EvalHook`` on the served engine (built on the
+    initial weights; after the steps, 18 launches a forward, scores and
+    bundle like a fresh engine's on the trained parameters), and the CLI in
+    its own process."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from vilbert_multitask_tpu_torch.checkpoint.store import (
+        restore_train_state,
+    )
+    from vilbert_multitask_tpu_torch.config import FrameworkConfig
+    from vilbert_multitask_tpu_torch.engine.runtime import (
+        InferenceEngine,
+        init_state_dict,
+    )
+    from vilbert_multitask_tpu_torch.evals import Evaluator
+    from vilbert_multitask_tpu_torch.features.store import FeatureStore
+    from vilbert_multitask_tpu_torch.ops.coattention import (
+        flash_cross_attention,
+    )
+    from vilbert_multitask_tpu_torch.train.loop import (
+        EvalHook,
+        LoopConfig,
+        MultiTaskSampler,
+        SyntheticTaskData,
+        Trainer,
+        latest_checkpoint,
+    )
+    from vilbert_multitask_tpu_torch.train.step import TrainState
+
+    out: dict = {}
+    # The kernel has no backward: on the card it refuses a gradient.
+    q = torch.zeros(1, 38, 8, 128, device="cuda", requires_grad=True)
+    kv = torch.zeros(1, 101, 8, 128, device="cuda")
+    bias = torch.zeros(1, 1, 1, 101, device="cuda")
+    try:
+        flash_cross_attention(q, kv, kv, bias)
+    except RuntimeError as e:
+        out["flash_refuses_gradient"] = str(e)
+    else:
+        raise AssertionError("flash_cross_attention launched with q "
+                             "requiring grad")
+
+    cfg = FrameworkConfig()
+    t0 = time.perf_counter()
+    weights = init_state_dict(cfg.model, seed=0)
+    init_s = time.perf_counter() - t0
+    # EvalHook's engine is built (bf16 graphs) on the initial weights; after
+    # the steps the hook copies the trained parameters into it.
+    store = FeatureStore(root)
+    tasks = {"vqa": [{"question": f"what is in picture {k}",
+                      "image": f"img_{k}", "answers": ["yes"] * 10}
+                     for k in range(8)]}
+    hook = EvalHook(cfg, store, tasks, device="cuda")
+    t0 = time.perf_counter()
+    hook(0, TrainState(step=0, params={
+        k: torch.as_tensor(v) for k, v in weights.items()}, mu={}, nu={}))
+    hook_build_s = time.perf_counter() - t0
+    before = _eval_bundle(hook._engine, tasks["vqa"])
+    ckpt_dir = os.path.join(state, "train_ckpts")
+    sampler = MultiTaskSampler(
+        {h: SyntheticTaskData(h, cfg) for h in TRAIN_HEADS})
+    logs: list = []
+    # The schedule spans the steps after the restore too (the optimizer is
+    # made from the loop config); the first run stops at TRAIN_STEPS.
+    loop = LoopConfig(total_steps=TRAIN_STEPS + TRAIN_CONTINUE_STEPS,
+                      batch_size=TRAIN_BATCH, learning_rate=1e-4,
+                      warmup_steps=3, log_every=1,
+                      ckpt_every=TRAIN_STEPS // 2, keep_ckpts=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = Trainer(cfg, sampler, loop, out_dir=ckpt_dir,
+                      init_params=weights, device="cuda",
+                      log_fn=lambda s: logs.append(json.loads(s)))
+    trainer.loop = dataclasses.replace(loop, total_steps=TRAIN_STEPS)
+    times: list = []
+    _timed_steps(torch, trainer, times)
+    saves: list = []
+    save = trainer._save
+
+    def timed_save(step):
+        t = time.perf_counter()
+        save(step)
+        saves.append(time.perf_counter() - t)
+
+    trainer._save = timed_save
+    flash_cross_attention.launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    flash_train = flash_cross_attention.launches
+    if flash_train != 0:
+        raise AssertionError(f"training launched flash_attn {flash_train} "
+                             f"times")
+    peak = torch.cuda.max_memory_allocated() - base
+    if len(logs) != TRAIN_STEPS or not all(
+            math.isfinite(v) for m in logs for k, v in m.items()
+            if k.startswith("loss/") or k == "grad_norm"):
+        raise AssertionError(f"train: non-finite or missing logs {logs}")
+    warm = times[len(TRAIN_HEADS):]  # past each head's first step
+    p50 = statistics.median(warm)
+    out.update(steps=TRAIN_STEPS, batch=TRAIN_BATCH, init_s=init_s,
+               step_ms_p50=1e3 * p50, step_ms=[1e3 * t for t in times],
+               rows_per_s=TRAIN_BATCH / p50, peak_bytes=peak,
+               heads_seen=sorted({m["head"] for m in logs}),
+               flash_launches_train=flash_train, save_s=saves)
+    log(f"train: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (heads "
+        f"{out['heads_seen']}), step p50 {1e3 * p50:.2f} ms "
+        f"({TRAIN_BATCH / p50:.1f} rows/s), first steps "
+        f"{[round(1e3 * t, 1) for t in times[:3]]} ms, peak "
+        f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB already "
+        f"held, flash_attn launches {flash_train}, snapshots "
+        f"{[round(s, 2) for s in saves]} s")
+
+    # A snapshot restored into a fresh Trainer is the saved state, bit for
+    # bit, and goes on as the uninterrupted run does.
+    path, at = latest_checkpoint(ckpt_dir)
+    snaps = sorted(os.listdir(ckpt_dir))
+    if at != TRAIN_STEPS or len(snaps) != 2:
+        raise AssertionError(f"train: snapshots {snaps}")
+    t0 = time.perf_counter()
+    fresh = Trainer(cfg, sampler, loop, out_dir=ckpt_dir,
+                    init_params=weights, device="cuda",
+                    log_fn=lambda s: None)
+    resume_s = time.perf_counter() - t0
+    if not _train_states_equal(torch, fresh.state, trainer.state):
+        raise AssertionError("train: the restored state differs from the "
+                             "saved one")
+    t0 = time.perf_counter()
+    restore_train_state(path, fresh.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    both = []
+    for t in (trainer, fresh):
+        t.out_dir = None  # no more snapshots
+        t.loop = loop
+        got = []
+        t.log = lambda s, got=got: got.append(json.loads(s))
+        t.train()
+        both.append([m["loss/total"] for m in got])
+    if not np.allclose(both[1], both[0], rtol=TRAIN_RESUME_RTOL, atol=0):
+        raise AssertionError(f"train: resumed losses {both[1]} against the "
+                             f"uninterrupted {both[0]}")
+    del fresh
+    shutil.rmtree(ckpt_dir)
+    out.update(restore_s=restore_s, resume_trainer_s=resume_s,
+               losses_after_resume=both[1], losses_uninterrupted=both[0])
+    log(f"train: snapshot at step {at} ({len(snaps)} kept) restored "
+        f"bit-equal in a fresh Trainer (restore {restore_s:.2f}s, Trainer "
+        f"with resume {resume_s:.1f}s); the next {TRAIN_CONTINUE_STEPS} "
+        f"losses {both[1]} against {both[0]} uninterrupted")
+
+    # EvalHook on the trained parameters: the served engine (bf16 graphs,
+    # 18 flash_attn launches a forward), its parameters copied in, answers
+    # as a fresh engine on those parameters does, and no longer as on the
+    # initial ones.
+    flash_cross_attention.launches = 0
+    t0 = time.perf_counter()
+    scores = hook(trainer.state.step, trainer.state)
+    torch.cuda.synchronize()
+    hook_s = time.perf_counter() - t0
+    flash_eval = flash_cross_attention.launches
+    if flash_eval != LAUNCHES_PER_FORWARD:  # 8 rows: one bucket-8 forward
+        raise AssertionError(f"EvalHook: {flash_eval} flash_attn launches "
+                             f"for one forward")
+    after = _eval_bundle(hook._engine, tasks["vqa"])
+    eng = InferenceEngine(cfg, params={
+        k: v.detach() for k, v in trainer.state.state_dict().items()},
+        feature_store=store, device="cuda")
+    eng.warmup()
+    want = {f"eval/vqa/{k}": round(float(v), 5)
+            for k, v in Evaluator(eng).run("vqa", tasks["vqa"]).items()
+            if k not in EvalHook._META_KEYS and isinstance(v, (int, float))}
+    fresh = _eval_bundle(eng, tasks["vqa"])
+    if scores != want:
+        raise AssertionError(f"EvalHook scored {scores}, a fresh engine "
+                             f"{want}")
+    d_fresh = max(float(np.abs(a - b).max()) for a, b in zip(after, fresh))
+    d_moved = max(float(np.abs(a - b).max()) for a, b in zip(after, before))
+    if d_fresh > EVAL_RELOAD_ATOL:
+        raise AssertionError(f"EvalHook's engine after load_params differs "
+                             f"from a fresh engine by {d_fresh}")
+    if d_moved <= 10 * EVAL_RELOAD_ATOL:
+        raise AssertionError(f"EvalHook's engine answers as on the initial "
+                             f"weights (moved {d_moved})")
+    del eng, hook
+    out.update(eval_scores=scores, eval_flash_launches=flash_eval,
+               eval_hook_build_s=hook_build_s, eval_hook_s=hook_s,
+               eval_bundle_vs_fresh=d_fresh, eval_bundle_moved=d_moved)
+    log(f"train: EvalHook {scores} (engine built and captured on the "
+        f"initial weights in {hook_build_s:.1f}s; after the steps "
+        f"{hook_s:.2f}s, {flash_eval} flash_attn launches for its one "
+        f"forward); its bundle {d_fresh:.3g} from a fresh engine's on the "
+        f"trained parameters, {d_moved:.3g} from its own before the steps")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # The CLI, in a process of its own on the card.
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    cli_out = os.path.join(state, "train_cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vilbert_multitask_tpu_torch.train.loop",
+         "--steps", "4", "--batch", "2", "--log-every", "1", "--out",
+         cli_out], cwd=state, env=env, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train.loop exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    final = json.loads(proc.stdout.strip().splitlines()[-1])["final"]
+    if final["step"] != 4 or not math.isfinite(final["loss/total"]) or \
+            latest_checkpoint(cli_out)[1] != 4:
+        raise AssertionError(f"train.loop: {proc.stdout[-2000:]}")
+    shutil.rmtree(cli_out)
+    out.update(cli_s=cli_s, cli_final=final)
+    log(f"train: python -m vilbert_multitask_tpu_torch.train.loop --steps 4 "
+        f"--batch 2: exit 0 in {cli_s:.1f}s, final {final}")
+    report["train"] = out
+    return out
+
+
+def _dropout_free_loss(torch, trainer, head: str, batch: dict) -> float:
+    """``head``'s loss on ``batch`` with dropout off, in the trainer's
+    compute dtype, without a gradient."""
+    from vilbert_multitask_tpu_torch.train.data import HEAD_LOSS_GROUPS
+    from vilbert_multitask_tpu_torch.train.losses import (
+        LossConfig,
+        multitask_loss,
+    )
+    from vilbert_multitask_tpu_torch.train.step import (
+        MODEL_INPUTS,
+        batch_tensors,
+    )
+
+    model = trainer.model
+    b = batch_tensors(batch, trainer.device)
+    model.eval()
+    try:
+        with torch.no_grad(), torch.autocast(
+                trainer.device.type, dtype=trainer.autocast_dtype,
+                enabled=trainer.autocast_dtype is not None):
+            out = model(*(b[k] for k in MODEL_INPUTS), None, b["task_ids"])
+        loss, _ = multitask_loss(LossConfig(
+            heads=HEAD_LOSS_GROUPS.get(head, (head,)),
+            retrieval_group_size=trainer.loop.retrieval_group_size), out, b)
+    finally:
+        model.train()
+    return float(loss)
+
+
+def check_fixed_batch_training(torch, report: dict) -> None:
+    """Per head, a Trainer of that head alone from the same seeded weights
+    (full width, bf16 autocast, dropout on) takes TRAIN_FIXED_REPEATS steps
+    on one batch repeated, and its loss on that batch, dropout off, falls
+    (the steps' own losses carry each step's dropout draw). Then where a step's
+    time goes: three more steps of the vqa head under ``torch.profiler``
+    (kernels a step, device busy share, the top kernels and host ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vilbert_multitask_tpu_torch.config import FrameworkConfig
+    from vilbert_multitask_tpu_torch.engine.profile_run import _union_us
+    from vilbert_multitask_tpu_torch.engine.runtime import init_state_dict
+    from vilbert_multitask_tpu_torch.train.loop import (
+        LoopConfig,
+        MultiTaskSampler,
+        SyntheticTaskData,
+        Trainer,
+    )
+
+    class Fixed(SyntheticTaskData):
+        def batch(self, batch_size, *, step=0):
+            return super().batch(batch_size, step=0)
+
+    cfg = FrameworkConfig()
+    weights = init_state_dict(cfg.model, seed=1)
+    falls = {}
+    for head in TRAIN_HEADS:
+        logs: list = []
+        trainer = Trainer(cfg, MultiTaskSampler({head: Fixed(head, cfg)}),
+                          LoopConfig(total_steps=TRAIN_FIXED_REPEATS,
+                                     batch_size=TRAIN_BATCH,
+                                     learning_rate=1e-4, warmup_steps=2,
+                                     log_every=1),
+                          init_params=weights, device="cuda",
+                          log_fn=lambda s, logs=logs: logs.append(
+                              json.loads(s)))
+        batch = trainer.sampler.next(TRAIN_BATCH, 0)[1]
+        before = _dropout_free_loss(torch, trainer, head, batch)
+        trainer.train()
+        after = _dropout_free_loss(torch, trainer, head, batch)
+        if not after < before:
+            raise AssertionError(
+                f"train: {head}'s loss on its fixed batch did not fall: "
+                f"{before} -> {after} (steps, dropout on: "
+                f"{[m['loss/total'] for m in logs]})")
+        falls[head] = {"before": before, "after": after,
+                       "steps": [m["loss/total"] for m in logs]}
+        if head == "vqa":
+            fn = trainer._step_for(head)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn(trainer.state, batch)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = _union_us([(e.time_range.start, e.time_range.end)
+                              for e in kernels]) / 1e6 / 3
+            by_name: dict = {}
+            for e in kernels:
+                c, t = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+            host = sorted((e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CPU),
+                          key=lambda e: -e.self_cpu_time_total)[:8]
+            step_profile = {
+                "kernels_per_step": len(kernels) / 3,
+                "device_busy_ms": 1e3 * busy, "wall_ms_profiled": 1e3 * wall,
+                "idle_share": max(0.0, 1.0 - busy / wall),
+                "top_kernels": [{"name": k[:100], "per_step": c / 3,
+                                 "ms_per_step": t / 3e3}
+                                for k, (c, t) in sorted(
+                                    by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:8]],
+                "host_top": [{"name": e.key[:100],
+                              "calls_per_step": e.count / 3,
+                              "self_cpu_ms_per_step":
+                                  e.self_cpu_time_total / 3e3}
+                             for e in host]}
+        del trainer
+        torch.cuda.empty_cache()
+    report.setdefault("train", {}).update(fixed_batch=falls,
+                                          step_profile=step_profile)
+    log("train: each head alone on a fixed batch, loss first -> last over "
+        f"{TRAIN_FIXED_REPEATS} steps: "
+        + ", ".join(f"{h} {v['before']:.4f} -> {v['after']:.4f}"
+                    for h, v in falls.items()))
+    log(f"train: a profiled vqa step: {step_profile['kernels_per_step']:.0f} "
+        f"kernels, device busy {step_profile['device_busy_ms']:.2f} ms of "
+        f"{step_profile['wall_ms_profiled']:.2f} ms (idle "
+        f"{step_profile['idle_share']:.3f}); top kernels "
+        + ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f} ms"
+                    for k in step_profile["top_kernels"][:4]))
+
+
 # ---------------------------------------------------------------- phase 7
 SERVED_FAMILIES = (  # (task id, question, images): the six decode families
     (1, "what is the man holding", ["img_0"]),
@@ -3162,6 +3820,136 @@ def check_entry_point(report: dict, root: str, state: str) -> None:
         "answer_s": {q: t for q, (_, t) in answers.items()}}
 
 
+# ------------------------------------------------- phase 8: remote worker
+REMOTE_SUBMITS = (  # (task id, question, image keys), one at a time
+    (1, "what is the remote worker answering", ["img_0"]),
+    (15, "is the cup left of the plate", ["img_1"]),
+    (13, "a cat sleeps on the sofa", ["img_2"]),
+    (12, "both images show a bridge", ["img_0", "img_3"]),
+)
+REMOTE_TOKEN = "chip-smoke-worker"
+
+
+def check_remote_worker(torch, report: dict, eng, root: str,
+                        state: str) -> None:
+    """``python -m vilbert_multitask_tpu_torch.serve.remote`` in a process
+    of its own on the card, draining an in-process web host with no engine
+    (``ApiServer`` over ``DurableQueue`` + ``ResultStore`` + ``PushHub``)
+    with phase 4's feature files and weights (the int8 phase's seed-0 f32
+    checkpoint): four submits, one at a time, each get one terminal frame
+    and one stored row whose answer equals ``predict()`` of phase 4's
+    engine; a wrong worker token is refused; SIGTERM exits 0."""
+    import dataclasses
+    import queue as queue_mod
+    import signal
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from vilbert_multitask_tpu_torch.serve import (
+        DurableQueue,
+        PushHub,
+        ResultStore,
+    )
+    from vilbert_multitask_tpu_torch.serve.http_api import ApiServer
+    from vilbert_multitask_tpu_torch.serve.remote import WorkerApiClient
+
+    web = os.path.join(state, "remote_web")
+    os.makedirs(web)
+    s = dataclasses.replace(
+        eng.cfg.serving, queue_db_path=os.path.join(web, "q.sqlite3"),
+        results_db_path=os.path.join(web, "r.sqlite3"),
+        media_root=os.path.join(web, "media"), worker_token=REMOTE_TOKEN)
+    hub = PushHub()
+    q = DurableQueue(s.queue_db_path,
+                     max_delivery_attempts=s.max_delivery_attempts)
+    store = ResultStore(s.results_db_path)
+    api = ApiServer(q, store, hub, s)
+    url = f"http://127.0.0.1:{api.start()}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "vilbert_multitask_tpu_torch.serve.remote",
+         "--url", url, "--features", root, "--checkpoint",
+         os.path.join(state, "int8_ckpt"), "--token", REMOTE_TOKEN,
+         "--poll", "0.05"], cwd=web, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    out: list = []
+    reader = threading.Thread(
+        target=lambda: [out.append(line) for line in proc.stdout],
+        daemon=True)
+    reader.start()
+    try:
+        try:
+            WorkerApiClient(url, token="wrong").post("/worker/claim", {})
+        except urllib.error.HTTPError as e:
+            if e.code != 401:
+                raise
+        else:
+            raise AssertionError("the web host took a wrong worker token")
+        answered = []
+        for i, (task_id, question, keys) in enumerate(REMOTE_SUBMITS):
+            sock = f"remote-{i}"
+            sub = hub.subscribe(sock)
+            req = urllib.request.Request(
+                url + "/", data=json.dumps({
+                    "task_id": task_id, "socket_id": sock,
+                    "question": question, "image_list": keys}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            t_submit = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=30) as r:
+                json.loads(r.read())
+            frames, end = [], time.perf_counter() + 600.0
+            while not any(is_terminal(f) for f in frames):
+                if time.perf_counter() > end or proc.poll() is not None:
+                    raise AssertionError(
+                        f"remote worker: no answer to submit {i} "
+                        f"({frames}): {''.join(out)[-3000:]}")
+                try:
+                    frames.append(sub.get(timeout=0.05))
+                except queue_mod.Empty:
+                    pass
+            latency = time.perf_counter() - t_submit
+            time.sleep(0.2)  # a second terminal frame would land by now
+            while not sub.empty():
+                frames.append(sub.get_nowait())
+            terminals = [f for f in frames if is_terminal(f)]
+            if len(terminals) != 1 or "result" not in terminals[0]:
+                raise AssertionError(f"remote worker submit {i}: {frames}")
+            want = eng.predict(task_id, question, keys).to_json()
+            same_answer({k: v for k, v in terminals[0]["result"].items()
+                         if k in want}, want, f"remote submit {i}")
+            answered.append(latency)
+        rows = store.recent()
+        if len(rows) != len(REMOTE_SUBMITS) or q.counts() != {}:
+            raise AssertionError(f"remote worker: {len(rows)} rows, queue "
+                                 f"{q.counts()}")
+        for row in rows:
+            task_id, question, keys = next(
+                r for r in REMOTE_SUBMITS if r[1] == row["input_text"])
+            want = eng.predict(task_id, question, keys).to_json()
+            same_answer({k: v for k, v in row["answer_text"].items()
+                         if k in want}, want, f"remote row {question!r}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"serve.remote exited {rc} after SIGTERM: "
+                                 f"{''.join(out)[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        api.stop()
+    wall = time.perf_counter() - t0
+    log(f"remote worker: python -m vilbert_multitask_tpu_torch.serve.remote "
+        f"answered {len(REMOTE_SUBMITS)} submits over HTTP as predict() "
+        f"(first {answered[0]:.1f}s with boot, then "
+        f"{[round(t, 3) for t in answered[1:]]} s), one terminal and one "
+        f"row each, a wrong token refused, exit 0 on SIGTERM ({wall:.1f}s)")
+    report["remote_worker"] = {"answer_s": answered, "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3222,8 +4010,14 @@ def main() -> int:
         # 7. the served path
         served_launches, served_detector = check_served(torch, report, eng,
                                                         root, state)
-        # 8. the server's entry point, in a process of its own
+        # 8. the server's entry point and the remote worker, each in a
+        # process of its own
         check_entry_point(report, root, state)
+        check_remote_worker(torch, report, eng, root, state)
+        # train: card against CPU, then the training path at full width
+        check_train_parity(torch, report)
+        check_train(torch, report, root, state)
+        check_fixed_batch_training(torch, report)
     # 9. the kernels line: per-shape numbers summed over the 18 launches of
     # one bucket-1 forward (6 x 38x101, 6 x 101x38, 6 x 101x101).
     fwd = [by_shape[(1, 38, 101)], by_shape[(1, 101, 38)],
@@ -3240,7 +4034,11 @@ def main() -> int:
                              "run_many": batched_launches,
                              "served": served_launches,
                              "per_graph_replay": report["graphs"][
-                                 "replay_flash_launches_bucket1"]},
+                                 "replay_flash_launches_bucket1"],
+                             "train_steps": report["train"][
+                                 "flash_launches_train"],
+                             "eval_hook_forward": report["train"][
+                                 "eval_flash_launches"]},
         "max_abs_err": max(r["max_abs_err_f32"]
                            for r in report["flash_attn_shapes"]),
         "max_abs_err_bf16": max(r["max_abs_err_bf16"]

@@ -13,7 +13,11 @@ features, decode, assets).
                   ``_build.py`` builds it with nvcc at first use.
 - ``engine/``     the inference engine facade (prepare / run / decode /
                   predict) and per-task decode.
-- ``checkpoint/`` JAX parameter tree → upstream torch state dict.
+- ``checkpoint/`` JAX parameter tree → upstream torch state dict; the
+                  port's own parameter and train-state checkpoints.
+- ``train/``      the multi-task trainer: losses, the AdamW step, data,
+                  the loop with snapshots and in-training evals.
+- ``serve/``      the serving tier, and the remote worker (``remote.py``).
 - ``text/``, ``features/``, ``assets/``: host-side copies.
 """
 

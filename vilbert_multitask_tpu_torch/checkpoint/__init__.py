@@ -1,6 +1,6 @@
 """Checkpoints: the JAX tree and upstream torch files carried into this
 package's layout (convert.py), and the port's own checkpoint store
-(store.py)."""
+(store.py: parameters and the trainer's whole state)."""
 
 from vilbert_multitask_tpu_torch.checkpoint.convert import (
     build_name_map,
@@ -13,7 +13,9 @@ from vilbert_multitask_tpu_torch.checkpoint.store import (
     convert_and_save,
     restore_params,
     restore_params_async,
+    restore_train_state,
     save_params,
+    save_train_state,
 )
 
 __all__ = [
@@ -25,5 +27,7 @@ __all__ = [
     "load_torch_checkpoint",
     "restore_params",
     "restore_params_async",
+    "restore_train_state",
     "save_params",
+    "save_train_state",
 ]

@@ -15,12 +15,18 @@ upload: ``dtype="int8"`` quantizes (quant.py), a floating dtype casts the
 floating leaves. Restores come back on the host; the engine's
 ``load_params`` places them.
 
-The training state's save and restore wait for the port's trainer.
+:func:`save_train_state` / :func:`restore_train_state` (the JAX store's
+:114 and :130) snapshot the trainer's whole state: a directory holding
+``train_state.pt``, ``torch.save`` of the step, the parameters, Adam's two
+moments and the dropout generator's state, read back into a template
+state's own tensors. The directory is written whole under a temporary
+name and renamed into place.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -35,6 +41,7 @@ from vilbert_multitask_tpu_torch.checkpoint.convert import (
 )
 
 PARAMS_FILE = "params.pt"
+TRAIN_STATE_FILE = "train_state.pt"
 
 
 def save_params(path: str, params: Dict[str, Any], *,
@@ -133,6 +140,53 @@ def restore_params_async(path: str, *, dtype=None,
                               name="checkpoint-restore")
     thread.start()
     return AsyncRestore(thread, box)
+
+
+def save_train_state(path: str, state: Any) -> None:
+    """Save a ``train.step.TrainState`` (step, parameters, moments and the
+    dropout generator's state) as the directory ``path``, copied to the
+    host. The whole snapshot is written into a sibling directory
+    (``<path>.tmp-<pid>``, a name ``train.loop.STEP_DIR_RE`` never
+    matches) and renamed to ``path`` when complete: a trainer killed
+    mid-save leaves no ``path`` behind, so a resume scan never sees a
+    partial snapshot. An existing ``path`` is refused
+    (``FileExistsError``), as the JAX store's Orbax save refuses it."""
+    def host(tree):
+        return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+    path = os.path.abspath(path.rstrip(os.sep))
+    if os.path.exists(path):
+        raise FileExistsError(f"{path} exists")
+    tmp = f"{path}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        torch.save({"step": int(state.step), "params": host(state.params),
+                    "mu": host(state.mu), "nu": host(state.nu),
+                    "generator": (state.generator.get_state()
+                                  if state.generator is not None else None)},
+                   os.path.join(tmp, TRAIN_STATE_FILE))
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def restore_train_state(path: str, template: Any) -> Any:
+    """Restore a snapshot of :func:`save_train_state` into ``template`` (a
+    freshly built ``TrainState`` of the same model: its tensors receive the
+    values in place, on their own device, and its generator the saved
+    state). Returns the template."""
+    from vilbert_multitask_tpu_torch.train.step import (
+        TrainState,
+        load_train_state,
+    )
+
+    raw = torch.load(os.path.join(path, TRAIN_STATE_FILE),
+                     map_location="cpu", weights_only=True)
+    return load_train_state(template, TrainState(
+        step=raw["step"], params=raw["params"], mu=raw["mu"], nu=raw["nu"],
+        generator=raw["generator"]))
 
 
 def convert_and_save(torch_path: str, out_path: str,

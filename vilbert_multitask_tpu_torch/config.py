@@ -82,8 +82,10 @@ class ViLBertConfig:
     # the kernel path when its head_dim is a multiple of 128 (the 1024/8
     # visual stream is; BERT-base text's 64 is not and stays dense).
     use_pallas_self_attention: bool = False
-    # Training-only knob of the JAX package (layer rematerialization); kept
-    # so configs round-trip, unused here (this package serves only).
+    # Training: recompute each encoder layer and bridge in the backward pass
+    # instead of keeping its activations (torch.utils.checkpoint per layer,
+    # models/encoder.py; the JAX package's nn.remat). Serving runs without
+    # gradients and is unaffected.
     remat: bool = False
 
     # --- heads ---

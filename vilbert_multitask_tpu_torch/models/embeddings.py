@@ -19,6 +19,7 @@ from torch import nn
 
 from vilbert_multitask_tpu_torch.config import ViLBertConfig
 from vilbert_multitask_tpu_torch.models.layers import (
+    Dropout,
     LayerNorm,
     compute_dtype,
 )
@@ -37,7 +38,7 @@ class TextEmbeddings(nn.Module):
             self.task_embeddings = nn.Embedding(cfg.num_task_tokens,
                                                 cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids, task_ids=None):
         n = input_ids.shape[1]
@@ -68,7 +69,7 @@ class ImageEmbeddings(nn.Module):
                                           cfg.v_hidden_size)
         self.image_location_embeddings = nn.Linear(5, cfg.v_hidden_size)
         self.LayerNorm = LayerNorm(cfg.v_hidden_size, eps=cfg.layer_norm_eps)
-        self.dropout = nn.Dropout(cfg.v_hidden_dropout_prob)
+        self.dropout = Dropout(cfg.v_hidden_dropout_prob)
 
     def forward(self, features, spatials):
         """features: (B, Nv, v_feature_size); spatials: (B, Nv, 5). Both are

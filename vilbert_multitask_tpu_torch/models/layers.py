@@ -29,6 +29,7 @@ from torch import nn
 from vilbert_multitask_tpu_torch.ops.attention import (
     FusedSelfAttention,
     cross_attention,
+    dropout,
 )
 
 # Exact (erf) GELU: the BERT/ViLBERT family is trained with the exact form.
@@ -44,6 +45,28 @@ def compute_dtype(module: nn.Module) -> torch.dtype:
     compute dtype of its int8 form (models/int8.py)."""
     dt = getattr(module, "compute_dtype", None)
     return dt if dt is not None else module.weight.dtype
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose masks come from ``generator`` when one is set
+    (:func:`set_dropout_generator`: the trainer's own generator, saved in
+    its train state, so a resumed run draws the masks an uninterrupted run
+    would), from torch's default generator otherwise."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.p, self.training, self.generator)
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Give every dropout of ``model`` (the :class:`Dropout` modules, the
+    attention-probability dropouts and the encoder's rematerialization)
+    ``generator``; ``None`` returns them to the default generator."""
+    for mod in model.modules():
+        if hasattr(type(mod), "generator"):
+            mod.generator = generator
 
 
 class LayerNorm(nn.LayerNorm):
@@ -69,7 +92,7 @@ class AttentionOutput(nn.Module):
         super().__init__()
         self.dense = nn.Linear(in_size, hidden_size)
         self.LayerNorm = LayerNorm(hidden_size, eps=layer_norm_eps)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, context: torch.Tensor, residual: torch.Tensor
                 ) -> torch.Tensor:
@@ -141,6 +164,8 @@ class BiAttention(nn.Module):
     """The two co-attention directions' projections (upstream
     ``biattention``): ``*1`` on the visual stream, ``*2`` on text."""
 
+    generator: Optional[torch.Generator] = None  # set_dropout_generator
+
     def __init__(self, v_hidden_size: int, hidden_size: int,
                  bi_hidden_size: int, num_heads: int,
                  dropout_rate: float = 0.1, use_pallas: bool = False):
@@ -159,7 +184,7 @@ class BiAttention(nn.Module):
                 need_probs: bool):
         kw = dict(num_heads=self.num_heads, use_pallas=self.use_pallas,
                   need_probs=need_probs, dropout_rate=self.dropout_rate,
-                  training=self.training)
+                  training=self.training, generator=self.generator)
         # Text queries over image keys/values → feeds the TEXT stream.
         t_ctx, probs_t2v = cross_attention(
             t_hidden, v_hidden, v_mask_bias,
@@ -183,7 +208,7 @@ class BiOutput(nn.Module):
         self.LayerNorm1 = LayerNorm(v_hidden_size, eps=layer_norm_eps)
         self.dense2 = nn.Linear(bi_hidden_size, hidden_size)
         self.LayerNorm2 = LayerNorm(hidden_size, eps=layer_norm_eps)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, v_ctx, v_residual, t_ctx, t_residual):
         v = self.LayerNorm1(self.dropout(self.dense1(v_ctx)) + v_residual)

@@ -32,7 +32,11 @@ from vilbert_multitask_tpu_torch.models.heads import (
     SimpleClassifier,
     fused_layer_norm,
 )
-from vilbert_multitask_tpu_torch.models.layers import ACT, compute_dtype
+from vilbert_multitask_tpu_torch.models.layers import (
+    ACT,
+    Dropout,
+    compute_dtype,
+)
 from vilbert_multitask_tpu_torch.ops.attention import mask_to_bias
 from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
 
@@ -114,7 +118,13 @@ class ViLBertForVLTasks(nn.Module):
         self.vision_logit = nn.Linear(cfg.v_hidden_size, 1)
         self.linguisic_logit = nn.Linear(cfg.hidden_size, 1)
         self.cls = PretrainingHeads(cfg, self.bert.embeddings.word_embeddings)
-        self.head_dropout = nn.Dropout(0.1)
+        self.head_dropout = Dropout(0.1)
+
+    def tie_weights(self) -> None:
+        """Share the MLM decoder's weight with the word embeddings again
+        (``Module.to_empty`` gives every parameter storage of its own)."""
+        self.cls.predictions.decoder.weight = (
+            self.bert.embeddings.word_embeddings.weight)
 
     def trunk(self, input_ids, features, spatials, segment_ids, input_mask,
               image_mask, co_attention_mask=None, task_ids=None, *,

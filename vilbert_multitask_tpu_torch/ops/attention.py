@@ -24,7 +24,6 @@ import functools
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
@@ -38,6 +37,19 @@ def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """
     bias = (1.0 - mask.to(dtype)) * -10000.0
     return bias[:, None, None, :]
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - p`` and
+    scaled by ``1 / (1 - p)`` in x's dtype (flax ``nn.Dropout``'s form).
+    The mask comes from ``generator`` when one is given (it must live on
+    x's device), from torch's default generator otherwise. Three launches:
+    the draw, the mask product and the scale."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return (x * keep).div_(1.0 - p)
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,6 +68,7 @@ def multi_head_attention(
     dropout_rate: float = 0.0,
     training: bool = False,
     dtype=torch.float32,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense attention. Returns (context (B, Nq, H, D), probs (B, H, Nq, Nk))."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * _inv_sqrt(q.shape[-1],
@@ -64,8 +77,7 @@ def multi_head_attention(
         scores = scores + bias.to(dtype)
     softmax_dtype = torch.promote_types(scores.dtype, torch.float32)
     probs = torch.softmax(scores.to(softmax_dtype), dim=-1).to(dtype)
-    dropped = (F.dropout(probs, dropout_rate, training=True)
-               if training and dropout_rate > 0.0 else probs)
+    dropped = dropout(probs, dropout_rate, training, generator)
     context = torch.einsum("bhqk,bkhd->bqhd", dropped, v)
     return context, probs
 
@@ -83,6 +95,7 @@ def cross_attention(
     need_probs: bool,
     dropout_rate: float = 0.0,
     training: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One co-attention direction: queries from ``x``, keys/values from
     ``y``. Returns (context (B, Nq, bi_hidden), probs or None)."""
@@ -99,7 +112,8 @@ def cross_attention(
         return ctx.reshape(B, Nq, hidden), None
     ctx, probs = multi_head_attention(q, k, v, y_mask_bias,
                                       dropout_rate=dropout_rate,
-                                      training=training, dtype=q.dtype)
+                                      training=training, dtype=q.dtype,
+                                      generator=generator)
     return ctx.reshape(B, Nq, hidden), probs
 
 
@@ -110,6 +124,10 @@ class FusedSelfAttention(nn.Module):
     here they stay three ``Linear`` layers, so each projection's output is
     contiguous and its ``(B, N, H, D)`` view goes to the kernel as it is.
     """
+
+    # The probabilities' dropout generator (models/layers.py
+    # set_dropout_generator); None draws from torch's default one.
+    generator: Optional[torch.Generator] = None
 
     def __init__(self, hidden_size: int, num_heads: int,
                  dropout_rate: float = 0.1, use_pallas: bool = False):
@@ -132,4 +150,4 @@ class FusedSelfAttention(nn.Module):
             num_heads=self.num_heads,
             use_pallas=self.use_pallas and head_dim % 128 == 0,
             need_probs=False, dropout_rate=self.dropout_rate,
-            training=self.training)
+            training=self.training, generator=self.generator)

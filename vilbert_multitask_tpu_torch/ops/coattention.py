@@ -88,6 +88,22 @@ def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype).permute(0, 2, 1, 3)
 
 
+def check_no_gradient(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when autograd would need a gradient through
+    the kernel: it has no backward (nor has the JAX package's Pallas
+    kernel), and its output would carry no ``grad_fn``, so the projections
+    before it would train with no gradient through attention. Training
+    runs the dense path (``use_pallas_*=False``); a gradient-free forward
+    (``torch.no_grad`` / ``inference_mode``) takes the kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_cross_attention has no backward: q, k or v requires "
+            "grad with gradients enabled. Train with use_pallas_coattention"
+            "=False and use_pallas_self_attention=False, or run the forward "
+            "under torch.no_grad()")
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.vmt_flash_attn
     if fn.argtypes is None:
@@ -152,7 +168,8 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor) -> torch.Tensor:
     """Blockwise attention; returns the context ``(B, Nq, H, D)`` in q's
     dtype. CUDA tensors go to the kernel (counted in
-    ``flash_cross_attention.launches``), CPU tensors to the plain version."""
+    ``flash_cross_attention.launches``; :func:`check_no_gradient` first),
+    CPU tensors to the plain version, whose torch ops autograd follows."""
     _check_shapes(q, k, v, bias)
     devices = {t.device for t in (q, k, v, bias)}
     if len(devices) != 1:
@@ -161,6 +178,7 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_cross_attention_plain(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
+    check_no_gradient(q, k, v)
     if q.dtype not in _DTYPE_CODES or any(
             t.dtype != q.dtype for t in (k, v, bias)):
         raise TypeError("flash_cross_attention takes float32 or bfloat16 "

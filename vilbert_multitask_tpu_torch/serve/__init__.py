@@ -5,7 +5,8 @@ stack, SURVEY.md §1): Django+RabbitMQ+Redis+Postgres collapse into an
 embedded, broker-less stack with the same wire contracts (queue message
 schema, websocket frame keys, HTTP endpoints) and the same sqlite schema.
 Only the engine underneath differs (engine/runtime.py on one CUDA device).
-``serve/remote.py`` (remote workers) is not ported yet.
+``serve/remote.py`` drains the queue over HTTP from a worker on another
+host.
 """
 
 from vilbert_multitask_tpu_torch.serve.db import ResultStore
