@@ -22,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and at the edges of its tiles, widths and masks:
    ``flash_attn`` in f32 (max abs error <= 2e-5, the JAX package's own
-   kernel tolerance) and bf16; ``nms`` keep masks identical at the RPN
+   kernel tolerance) and bf16, also at a tp = 2 rank's shapes (4 local
+   heads of 128 at the serving buckets); ``nms`` keep masks identical at the RPN
    (5 x 1000) and selection (1600 x 300, one shared box set) shapes, N off
    the 64-box words, ragged groups, identical, disjoint and tied boxes,
    IoUs exactly at the threshold, shared box sets of 1000 (ragged counts,
@@ -162,6 +163,31 @@ train. training (no kernel: the trainer's model runs dense attention, and
    vilbert_multitask_tpu_torch.train.loop --steps 4 --batch 2 --out <dir>``
    exits 0 in its own process; and each head's loss falls on a fixed
    batch of its own repeated about 10 times;
+parallel. the process mesh (parallel/): world 1 on NCCL in this process
+   (``initialize(backend="nccl")``, ``build_mesh(MeshConfig())``): the
+   mesh engine's bundles for the six decode families against the eager
+   single-device engine's (expected bit-equal; held within BUNDLE_F32);
+   then two ranks sharing the card over gloo, their collectives on CUDA
+   tensors staged through host memory (counted per run), through
+   ``parallel.launch.spawn_ranks``: tp = 2 at full width in f32 (bundles
+   within BUNDLE_F32 of the card's f32 engine, the same answers) and in
+   bf16 (``run()`` p50, 18 ``flash_attn`` launches per forward on each
+   rank, bundles within BUNDLE_BF16 of the card's bf16 engine); tp = 2
+   int8 (every product shape either rank's sliced layers give
+   ``int8_linear`` held against ``int8_linear_plain`` at phase 3's bf16
+   tolerance and timed beside ``F.linear`` on the dequantized bf16 shard
+   and the bound; bundles within BUNDLE_BF16 of the card's int8
+   engine, answers a bf16 tie reorders counted); sp = 2 over 1024
+   regions (``ring_min_regions=512``): the 6 visual self-attentions take
+   the ring, bundles within BUNDLE_F32 of the dense engine; dp = 2
+   ``run_many`` in f32 over phase 6's backlog, the same answers as one
+   f32 engine's, numbers within BUNDLE_F32; training: 3 f32 steps (depth
+   2/1/1, dropout off) at tp = 2 and at dp = 2 against the single-device
+   step, held as ``TRAIN_PARITY_*`` says, and a tp = 2 ``Trainer``
+   snapshot restored on a fresh launch bit-equal, its next loss within
+   ``TRAIN_RESUME_RTOL``;
+   NCCL across cards runs the serving runs again where there are two
+   cards or more, and is reported as not run otherwise;
 9. a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -394,6 +420,11 @@ EDGES = [
     (1, 101, 101, 8, 128, 0.9, 8.0, "q x 8: peaky rows"),
     (1, 38, 101, 8, 128, 0.1, 1.0, "90% of the keys masked"),
 ]
+# What each rank of a tp = 2 mesh launches at the serving buckets: its 4
+# local heads of 128 (the parallel phase's tp = 2 forwards).
+TP2_SHARDS = [(b, nq, nk, 4, 128, 0.9, 1.0, "tp=2 shard")
+              for b in (1, 2, 4, 8, 32)
+              for nq, nk in ((38, 101), (101, 38), (101, 101))]
 
 
 def bf16_check(out, ref) -> tuple:
@@ -413,7 +444,8 @@ def check_flash_attention(torch, report: dict) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = []
-    for B, Nq, Nk, H, D, keep, q_scale, what in SERVING + EDGES:
+    for B, Nq, Nk, H, D, keep, q_scale, what in (SERVING + EDGES
+                                                 + TP2_SHARDS):
         q32, k32, v32 = (torch.randn(B, n, H, D, generator=gen).to(dev)
                          for n in (Nq, Nk, Nk))
         q32 = q32 * q_scale
@@ -965,13 +997,13 @@ def int8_operands(torch, gen, M, N, K, batch, dtype, round_scale: bool):
             b.to(dev, dtype))
 
 
-def int8_bound_parts(M, N, K, batch, itemsize) -> tuple:
+def int8_bound_parts(M, N, K, batch, itemsize, bias: bool = True) -> tuple:
     """(ms to move the bytes, ms for the operations) of one call: q once
-    (int8), the scales (f32) and bias once, x read once and y written once,
-    over the HBM rate; 2·M·N·K operations at the bf16 tensor-core peak
-    (itemsize 2) or the f32 CUDA-core peak."""
-    n_bytes = batch * (N * K + 4 * N + itemsize * N + itemsize * M * K
-                       + itemsize * M * N)
+    (int8), the scales (f32) and the bias (where there is one) once, x read
+    once and y written once, over the HBM rate; 2·M·N·K operations at the
+    bf16 tensor-core peak (itemsize 2) or the f32 CUDA-core peak."""
+    n_bytes = batch * (N * K + 4 * N + itemsize * N * bias
+                       + itemsize * M * K + itemsize * M * N)
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     return (n_bytes / PEAK_BYTES_PER_S * 1e3,
             2 * M * N * K * batch / peak * 1e3)
@@ -3950,6 +3982,734 @@ def check_remote_worker(torch, report: dict, eng, root: str,
     report["remote_worker"] = {"answer_s": answered, "wall_s": wall}
 
 
+# ---------------------------------------------------------------- parallel
+# The parallel phase. The card is one H100: NCCL refuses two ranks on one
+# device, so the world-1 run is NCCL and the 2-rank runs are two processes
+# sharing the card over gloo, whose collectives on CUDA tensors the port
+# stages through host memory (parallel/comm.py). NCCL across cards runs
+# only where there are two or more.
+PARALLEL_LONG_REGIONS = 1024  # the sp run's bucket: 1023 boxes + global
+PARALLEL_RING_MIN = 512
+PARALLEL_TIMED_RUNS = 10
+PARALLEL_TRAIN_STEPS = 3
+
+
+def _parallel_cfg(model, **engine):
+    from vilbert_multitask_tpu_torch.config import EngineConfig, FrameworkConfig
+
+    return FrameworkConfig(model=model, engine=EngineConfig(**engine))
+
+
+def _serve_session(eng, rank: int, fn):
+    """``fn()`` on rank 0 of a mesh engine while the other ranks follow
+    its dispatches; the launches each rank's kernels counted meanwhile."""
+    from vilbert_multitask_tpu_torch.ops.coattention import (
+        flash_cross_attention,
+    )
+    from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
+    from vilbert_multitask_tpu_torch.parallel.ring import ring_self_attention
+
+    flash_cross_attention.launches = int8_linear.launches = 0
+    ring_self_attention.calls = 0
+    out = None
+    if rank == 0:
+        try:
+            out = fn()
+        finally:
+            eng.stop_followers()
+    else:
+        eng.follow()
+    return out, {"flash_attn": flash_cross_attention.launches,
+                 "int8_linear": int8_linear.launches,
+                 "ring_calls": ring_self_attention.calls}
+
+
+def _bundles(eng, requests) -> dict:
+    """Rank 0: the host decode bundle and the answer of each request."""
+    out = {}
+    for task_id, question, keys in requests:
+        req = eng.prepare_from_store(task_id, question, keys)
+        _, bundle = eng.bundle(req)
+        out[task_id] = (bundle, eng.decode(req, bundle).to_json())
+    return out
+
+
+def parallel_serve_rank(rank: int, job: dict) -> dict:
+    """The serving runs of the parallel phase on one rank of a 2-rank
+    world: tp = 2 in f32 and bf16, tp = 2 int8, sp = 2 over a long region
+    set, dp = 2 run_many. Rank 0 returns the results; every rank its
+    launch counts and staging."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from vilbert_multitask_tpu_torch.checkpoint.store import restore_params
+    from vilbert_multitask_tpu_torch.config import MeshConfig
+    from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
+    from vilbert_multitask_tpu_torch.features.store import FeatureStore
+    from vilbert_multitask_tpu_torch.models.int8 import QuantLinear
+    from vilbert_multitask_tpu_torch.ops.int8_linear import (
+        int8_linear,
+        int8_linear_plain,
+    )
+    from vilbert_multitask_tpu_torch.parallel import (
+        build_mesh,
+        comm,
+        distributed,
+    )
+    from vilbert_multitask_tpu_torch.parallel.tp import (
+        QuantRowParallelLinear,
+    )
+
+    dev = distributed.device()
+    model = job["model"]
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": str(dev), "runs": {}}
+
+    def engine(cfg, mesh, dtype, root):
+        params = restore_params(job["ckpt"], dtype=dtype, cfg=cfg.model,
+                                mesh=mesh)
+        return InferenceEngine(cfg, params=params,
+                               feature_store=FeatureStore(root), mesh=mesh,
+                               device=dev)
+
+    def run(name, cfg, mesh_cfg, dtype, root, fn):
+        comm.reset_staged()
+        t0 = time.perf_counter()
+        mesh = build_mesh(mesh_cfg)
+        eng = engine(cfg, mesh, dtype, root)
+        got, counts = _serve_session(eng, rank, lambda: fn(eng))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["runs"][name] = {"result": got, "counts": counts,
+                             "staged": dict(comm.STAGED),
+                             "mesh": dict(zip(mesh.mesh_dim_names,
+                                              list(mesh.mesh.shape))),
+                             "wall_s": time.perf_counter() - t0}
+        return eng
+
+    f32 = _parallel_cfg(model, compute_dtype="float32")
+    bf16 = _parallel_cfg(model)
+    requests = job["requests"]
+    run("tp2_f32", f32, MeshConfig(dp=1, tp=2), "float32", job["root"],
+        lambda eng: _bundles(eng, requests))
+
+    def timed(eng):
+        req = eng.prepare_from_store(*requests[0][:2], requests[0][2])
+        for _ in range(3):
+            eng.run(req)
+        times = []
+        for _ in range(PARALLEL_TIMED_RUNS):
+            t0 = time.perf_counter()
+            eng.run(req)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return {"bundles": _bundles(eng, requests[:1]),
+                "run_ms": statistics.median(times),
+                "forwards": 3 + PARALLEL_TIMED_RUNS + 1}
+
+    run("tp2_bf16", bf16, MeshConfig(dp=1, tp=2), None, job["root"], timed)
+
+    # int8: each rank records its products' shapes during the requests.
+    int8_cfg = dataclasses.replace(bf16, engine=dataclasses.replace(
+        bf16.engine, param_dtype="int8"))
+    seen: dict = {}
+    calls: list = []
+
+    comm.reset_staged()
+    mesh = build_mesh(MeshConfig(dp=1, tp=2))
+    eng = engine(int8_cfg, mesh, "int8", job["root"])
+
+    def record(mod, args):
+        x = args[0]
+        shape = (x.numel() // x.shape[-1], mod.out_features, mod.in_features)
+        seen.setdefault(shape, mod)
+        calls.append(shape)
+
+    def first_then_rest():
+        """The first request (bucket 1) alone, then the rest; the trunk
+        products of that first forward are ``calls[:first]``."""
+        got = _bundles(eng, requests[:1])
+        out["int8_first_forward"] = len(calls)
+        got.update(_bundles(eng, requests[1:]))
+        return got
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in eng.model.modules() if isinstance(m, QuantLinear)]
+    got, counts = _serve_session(eng, rank, first_then_rest)
+    for h in hooks:
+        h.remove()
+    out["runs"]["tp2_int8"] = {"result": got, "counts": counts,
+                               "staged": dict(comm.STAGED)}
+    # Every rank holds its own shards against the plain version; then
+    # rank 0 alone times them (the card is shared: no timing overlaps the
+    # other rank's work).
+    shapes, operands = [], []
+    gen = torch.Generator().manual_seed(7 + rank)
+    for (M, N, K), mod in sorted(seen.items(), key=lambda kv: kv[0]):
+        x = torch.randn(M, K, generator=gen).to(dev, torch.bfloat16)
+        q, s = mod.qweight, mod.kernel_scale
+        # a row shard adds its bias after the tp sum, not in the product
+        b = (None if isinstance(mod, QuantRowParallelLinear)
+             else mod.kernel_bias)
+        ref = int8_linear_plain(x, q, s, b).float()
+        got = int8_linear(x, q, s, b, scale_bf16=True).float()
+        err, used = (bf16_check(got, ref) if dev.type == "cuda"
+                     else (0.0, 0.0))
+        shapes.append({"M": M, "N": N, "K": K, "max_abs_err_bf16": err,
+                       "tol_used_bf16": used, "module": type(mod).__name__})
+        operands.append((x, q, s, b))
+    dist.barrier()
+    if rank == 0 and dev.type == "cuda":
+        for row, (x, q, s, b) in zip(shapes, operands):
+            # the library call: F.linear on the dequantized bf16 shard
+            w16 = (q.float() * s.float().unsqueeze(-1)).to(torch.bfloat16)
+            row["kernel_ms"] = device_ms(
+                lambda: int8_linear(x, q, s, b, scale_bf16=True),
+                reps=5, inner=5)
+            row["plain_ms"] = device_ms(
+                lambda: int8_linear_plain(x, q, s, b), reps=5, inner=5)
+            row["library_ms"] = device_ms(
+                lambda: torch.nn.functional.linear(x, w16, b),
+                reps=5, inner=5)
+            t_bytes, t_ops = int8_bound_parts(row["M"], row["N"], row["K"],
+                                              1, 2, bias=b is not None)
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        by_shape = {(r["M"], r["N"], r["K"]): r for r in shapes}
+        first = calls[:out["int8_first_forward"]]
+        out["int8_forward_ms"] = {"products": len(first), **{
+            key: sum(by_shape[c][key] for c in first)
+            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}}
+    dist.barrier()
+    out["int8_shapes"] = shapes
+    del eng, operands
+
+    long_cfg = _parallel_cfg(
+        model, compute_dtype="float32", max_regions=PARALLEL_LONG_REGIONS,
+        num_features=PARALLEL_LONG_REGIONS - 1,
+        ring_min_regions=PARALLEL_RING_MIN, image_buckets=(1, 2))
+    run("sp2_f32_long", long_cfg, MeshConfig(dp=1, tp=1, sp=2), "float32",
+        job["long_root"], lambda eng: _bundles(eng, job["long_requests"]))
+
+    def many(eng):
+        reqs = [eng.prepare_from_store(t, q, k) for t, q, k in job["backlog"]]
+        return {"results": [r.to_json() for r in eng.run_many(reqs)],
+                "rows": sum(r.n_images for r in reqs)}
+
+    run("dp2_run_many", f32, MeshConfig(dp=2, tp=1), "float32",
+        job["root"], many)
+    return out
+
+
+def parallel_train_rank(rank: int, job: dict) -> dict:
+    """The training runs of the parallel phase on one rank of a 2-rank
+    world: 3 f32 steps (dropout off) at tp = 2 and at dp = 2 against the
+    single-device step on rank 0's device, then a ``Trainer`` at tp = 2
+    writing a snapshot (``job["out"]``), or, with ``job["resume"]``,
+    resuming one on a fresh launch."""
+    import torch
+
+    from vilbert_multitask_tpu_torch.checkpoint.store import (
+        TRAIN_STATE_FILE,
+        _gathered,
+    )
+    from vilbert_multitask_tpu_torch.config import MeshConfig
+    from vilbert_multitask_tpu_torch.engine.runtime import init_state_dict
+    from vilbert_multitask_tpu_torch.models.vilbert import ViLBertForVLTasks
+    from vilbert_multitask_tpu_torch.parallel import build_mesh, distributed
+    from vilbert_multitask_tpu_torch.parallel.sharding import (
+        shard_state_dict,
+    )
+    from vilbert_multitask_tpu_torch.parallel.tp import parallelize
+    from vilbert_multitask_tpu_torch.train import losses, step
+    from vilbert_multitask_tpu_torch.train.loop import (
+        LoopConfig,
+        MultiTaskSampler,
+        SyntheticTaskData,
+        Trainer,
+    )
+
+    dev = distributed.device()
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mcfg = job["train_model"]
+    cfg = _parallel_cfg(mcfg, compute_dtype="float32")
+    out: dict = {}
+    heads = ("vqa", "gqa", "binary", "tri", "grounding", "retrieval", "mlm",
+             "mrm")
+
+    def loop_cfg(steps):
+        return LoopConfig(total_steps=steps, batch_size=4, log_every=1,
+                          ckpt_every=2, warmup_steps=1,
+                          learning_rate=TRAIN_PARITY_LR)
+
+    def sampler():
+        return MultiTaskSampler({h: SyntheticTaskData(h, cfg)
+                                 for h in ("vqa", "tri")})
+
+    if job.get("resume"):
+        logs: list = []
+        t = Trainer(cfg, sampler(), loop_cfg(PARALLEL_TRAIN_STEPS),
+                    out_dir=job["out"], mesh=build_mesh(MeshConfig(tp=2)),
+                    device=dev, log_fn=logs.append)
+        saved = torch.load(os.path.join(job["out"], "step_00000002",
+                                        TRAIN_STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        equal = True
+        for what in ("params", "mu", "nu"):
+            tree = _gathered(getattr(t.state, what), t.state)
+            equal = equal and all(torch.equal(tree[k].cpu(), v)
+                                  for k, v in saved[what].items())
+        out["resumed_step"] = t.state.step
+        out["restored_bit_equal"] = bool(equal)
+        t.train()
+        out["losses"] = [json.loads(x)["loss/total"] for x in logs
+                         if x.startswith('{"')]
+        return out
+
+    weights = init_state_dict(mcfg, seed=3)
+    batch = _all_heads_batch(cfg, 4)
+
+    def steps(mesh):
+        with torch.device("meta"):
+            model = ViLBertForVLTasks(mcfg)
+            if mesh is not None:
+                parallelize(model, mesh)
+        model.to_empty(device=dev)
+        model.tie_weights()
+        sd = weights if mesh is None else shard_state_dict(weights, mesh)
+        model.load_state_dict(sd, strict=True)
+        model.eval()
+        tx = step.default_optimizer(learning_rate=TRAIN_PARITY_LR,
+                                    warmup_steps=1, total_steps=50)
+        state = step.create_train_state(model, tx, mesh=mesh)
+        fn = step.make_train_step(model, tx, losses.LossConfig(heads=heads))
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(PARALLEL_TRAIN_STEPS):
+            state, m = fn(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        params = (_gathered(state.params, state) if mesh is not None
+                  else state.params)
+        return metrics, {k: v.detach() for k, v in params.items()}, seconds
+
+    single = steps(None) if rank == 0 else None
+    for name, mesh_cfg in (("tp2", MeshConfig(dp=1, tp=2)),
+                           ("dp2", MeshConfig(dp=2, tp=1))):
+        metrics, params, seconds = steps(build_mesh(mesh_cfg))
+        if rank != 0:
+            continue
+        far = total = 0
+        worst = 0.0
+        over = []
+        lr_steps = TRAIN_PARITY_LR * PARALLEL_TRAIN_STEPS
+        for k, p in single[1].items():
+            d = (params[k] - p).abs()
+            limit = lr_steps if _zero_gradient(k) else 0.1 * lr_steps
+            if float(d.max()) > limit:
+                over.append((k, float(d.max()), limit))
+            if not _zero_gradient(k):
+                far += int((d > 1e-6).sum())
+                total += d.numel()
+                worst = max(worst, float(d.max()))
+        out[name] = {"metrics": metrics, "single_metrics": single[0],
+                     "seconds": seconds, "single_seconds": single[2],
+                     "max_abs_param_diff": worst,
+                     "elements_beyond_1e-6": far, "elements": total,
+                     "over_limit": over}
+    del single
+    logs = []
+    t = Trainer(cfg, sampler(), loop_cfg(PARALLEL_TRAIN_STEPS),
+                out_dir=job["out"], mesh=build_mesh(MeshConfig(tp=2)),
+                device=dev, log_fn=logs.append)
+    t.train()
+    out["losses"] = [json.loads(x)["loss/total"] for x in logs
+                     if x.startswith('{"')]
+    return out
+
+
+def _write_long_features(root: str, dim: int) -> list:
+    """Two feature files of PARALLEL_LONG_REGIONS - 1 boxes (the sp run's
+    bucket: every region real), and the sp run's requests."""
+    import numpy as np
+
+    from vilbert_multitask_tpu_torch.features.pipeline import (
+        synthetic_regions,
+    )
+    from vilbert_multitask_tpu_torch.features.store import save_reference_npy
+
+    rng = np.random.default_rng(4321)
+    for i in range(2):
+        save_reference_npy(os.path.join(root, f"long_{i}.npy"),
+                           synthetic_regions(
+                               dim, n_boxes=PARALLEL_LONG_REGIONS - 1,
+                               rng=rng, image_w=2000, image_h=1500),
+                           f"long_{i}")
+    return [(1, "what is in the crowd", ["long_0"]),
+            (12, "both images show many people", ["long_0", "long_1"])]
+
+
+def _same_answers(got: dict, want: dict, tol: dict, what: str, *,
+                  exact_answers: bool = True) -> tuple:
+    """Decode bundles within ``tol`` (compare_bundles) and, with
+    ``exact_answers`` (f32), the same answers; returns (max abs error,
+    share of tol used, bit-equal, tasks whose answer differs). A bf16
+    answer may reorder labels or boxes whose scores tie to a bf16 step
+    (phase 7's lesson): those are counted, not failed."""
+    import numpy as np
+
+    worst = used = 0.0
+    equal = True
+    differ = []
+    for task_id, (bundle, answer) in want.items():
+        g_bundle, g_answer = got[task_id]
+        err, u = compare_bundles(bundle, g_bundle, tol,
+                                 f"{what} task {task_id}")
+        worst, used = max(worst, err), max(used, u)
+        equal = equal and all(
+            np.array_equal(a, b) for a, b in zip(
+                flat_bundle(bundle).values(), flat_bundle(g_bundle).values()))
+        if _answer_keys(g_answer) != _answer_keys(answer):
+            if exact_answers:
+                raise AssertionError(f"{what} task {task_id}: answer "
+                                     f"{g_answer} vs {answer}")
+            differ.append(task_id)
+    return worst, used, equal, differ
+
+
+def _numbers(result: dict) -> list:
+    """A decoded result's confidences and scores, in order."""
+    out = []
+    for key in ("answers", "ranking", "boxes"):
+        for a in result.get(key) or ():
+            out += [a[k] for k in ("confidence", "score") if k in a]
+    return out
+
+
+def _answer_keys(result: dict):
+    """A decoded result's answers without their numbers."""
+    for key in ("answers", "ranking", "boxes"):
+        if result.get(key) is not None:
+            return [{k: v for k, v in a.items()
+                     if k not in ("confidence", "score")}
+                    for a in result[key]]
+    return result.get("kind")
+
+
+def check_parallel(torch, report: dict, root: str, state: str, *,
+                   model=None, device: str = "cuda") -> dict:
+    """The parallel phase (see the module docstring): world 1 on NCCL in
+    this process, then the 2-rank serving and training runs through
+    ``parallel.launch.spawn_ranks`` on gloo with CUDA tensors, each held
+    against the single-device engine or step on this card; NCCL across
+    cards where there are two or more. Returns the per-rank launches of
+    one tp = 2 forward."""
+    import dataclasses
+    import shutil
+
+    from vilbert_multitask_tpu_torch.checkpoint.store import (
+        restore_params,
+        save_params,
+    )
+    from vilbert_multitask_tpu_torch.config import (
+        MeshConfig,
+        ViLBertConfig,
+    )
+    from vilbert_multitask_tpu_torch.engine.runtime import (
+        InferenceEngine,
+        init_state_dict,
+    )
+    from vilbert_multitask_tpu_torch.features.store import FeatureStore
+    from vilbert_multitask_tpu_torch.ops.coattention import (
+        flash_cross_attention,
+    )
+    from vilbert_multitask_tpu_torch.parallel import (
+        build_mesh,
+        distributed,
+        launch,
+    )
+
+    model = model or ViLBertConfig()
+    world1_backend = distributed.default_backend(device)  # nccl on the card
+    rep: dict = {"device_count": torch.cuda.device_count()
+                 if device == "cuda" else 0}
+    report["parallel"] = rep
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(state, "parallel_ckpt")
+    weights = init_state_dict(model, seed=0)  # phase 4's weights
+    save_params(ckpt, weights)
+    store = FeatureStore(root)
+    bf16 = _parallel_cfg(model)
+    f32 = _parallel_cfg(model, compute_dtype="float32")
+
+    # 1. world 1 on NCCL, in this process: the mesh engine against the
+    # single-device engine, both eager, on the same weights.
+    distributed.initialize(
+        world1_backend, init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+        world_size=1, rank=0, device=device)
+    try:
+        mesh = build_mesh(MeshConfig())
+        mesh_eng = InferenceEngine(bf16, params=weights, feature_store=store,
+                                   mesh=mesh, device=device)
+        eager = InferenceEngine(bf16, params=weights, feature_store=store,
+                                device=device)
+        flash_cross_attention.launches = 0
+        got = _bundles(mesh_eng, REQUESTS)
+        n = flash_cross_attention.launches
+        want = _bundles(eager, REQUESTS)
+        err, used, equal, _ = _same_answers(got, want, BUNDLE_F32,
+                                            "world 1")
+        rep["world1"] = {"backend": world1_backend,
+                         "mesh": dict(zip(mesh.mesh_dim_names,
+                                          list(mesh.mesh.shape))),
+                         "bit_equal": equal, "max_abs_err": err,
+                         "tol_used_f32": used,
+                         "flash_launches_per_forward": n / len(REQUESTS)}
+        log(f"parallel: world 1 on {world1_backend}, mesh "
+            f"{rep['world1']['mesh']}: bundles bit-equal to eager "
+            f"predict(): {equal} (max abs err {err:.3e}); "
+            f"{n / len(REQUESTS):g} flash_attn launches per forward")
+        del mesh_eng, eager
+    finally:
+        distributed.shutdown()
+
+    # References on this card: eager single-device engines.
+    long_root = os.path.join(state, "long_features")
+    os.makedirs(long_root, exist_ok=True)
+    long_requests = _write_long_features(long_root, model.v_feature_size)
+    ref_f32 = InferenceEngine(f32, params=weights, feature_store=store,
+                              device=device)
+    want_f32 = _bundles(ref_f32, REQUESTS)
+    specs = backlog()
+    want_many = [r.to_json() for r in ref_f32.run_many(
+        [ref_f32.prepare_from_store(t, q, k) for t, q, k in specs])]
+    del ref_f32
+    ref_int8 = InferenceEngine(
+        dataclasses.replace(bf16, engine=dataclasses.replace(
+            bf16.engine, param_dtype="int8")),
+        params=restore_params(ckpt, dtype="int8", cfg=model),
+        feature_store=store, device=device)
+    want_int8 = _bundles(ref_int8, REQUESTS)
+    del ref_int8
+    long_cfg = _parallel_cfg(
+        model, compute_dtype="float32", max_regions=PARALLEL_LONG_REGIONS,
+        num_features=PARALLEL_LONG_REGIONS - 1,
+        ring_min_regions=PARALLEL_RING_MIN, image_buckets=(1, 2))
+    ref_long = InferenceEngine(long_cfg, params=weights,
+                               feature_store=FeatureStore(long_root),
+                               device=device)
+    want_long = _bundles(ref_long, long_requests)
+    del ref_long
+    ref_bf16 = InferenceEngine(bf16, params=weights, feature_store=store,
+                               device=device)
+    want_bf16 = _bundles(ref_bf16, REQUESTS[:1])
+    req = ref_bf16.prepare_from_store(*REQUESTS[0][:2], REQUESTS[0][2])
+    for _ in range(3):
+        ref_bf16.run(req)
+    times = []
+    for _ in range(PARALLEL_TIMED_RUNS):
+        t0 = time.perf_counter()
+        ref_bf16.run(req)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rep["single_bf16_eager_run_ms"] = statistics.median(times)
+    del ref_bf16
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # 2. two ranks on this card (gloo, CUDA tensors staged), and NCCL
+    # across cards where there are two.
+    job = dict(model=model, ckpt=ckpt, root=root, long_root=long_root,
+               requests=REQUESTS, long_requests=long_requests,
+               backlog=specs)
+    worlds = [("gloo", "two ranks on one card")]
+    if device == "cuda" and torch.cuda.device_count() >= 2:
+        worlds.append(("nccl", "one card per rank"))
+    else:
+        rep["nccl_across_cards"] = (
+            f"not run: {rep['device_count']} card(s); NCCL takes one card "
+            f"per rank")
+        log(f"parallel: NCCL across cards {rep['nccl_across_cards']}")
+    tp_launches = None
+    for backend, how in worlds:
+        t0 = time.perf_counter()
+        ranks_out = launch.spawn_ranks(parallel_serve_rank, 2,
+                                       backend=backend, device=device,
+                                       args=(job,), timeout_s=900)
+        r0 = ranks_out[0]
+        runs = r0["runs"]
+        res = {"backend": r0["backend"], "world": r0["world"], "how": how,
+               "devices": [r["device"] for r in ranks_out],
+               "wall_s": time.perf_counter() - t0,
+               "staged": {name: [r["runs"][name]["staged"]
+                                 for r in ranks_out] for name in runs}}
+        log(f"parallel: {backend}, world {r0['world']} ({how}), devices "
+            f"{res['devices']}; staged through host memory per run: "
+            + "; ".join(f"{name} {st[0]['ops']} ops / {st[0]['bytes']} B"
+                        for name, st in res["staged"].items()))
+        err, used, equal, _ = _same_answers(runs["tp2_f32"]["result"],
+                                            want_f32, BUNDLE_F32,
+                                            "tp=2 f32")
+        res["tp2_f32"] = {"max_abs_err": err, "tol_used": used,
+                          "bit_equal": equal}
+        timed = runs["tp2_bf16"]["result"]
+        per_rank = [r["runs"]["tp2_bf16"]["counts"]["flash_attn"]
+                    / timed["forwards"] for r in ranks_out]
+        err16, used16, _, differ16 = _same_answers(
+            timed["bundles"], want_bf16, BUNDLE_BF16, "tp=2 bf16",
+            exact_answers=False)
+        res["tp2_bf16"] = {"run_ms_p50": timed["run_ms"],
+                           "flash_launches_per_forward_by_rank": per_rank,
+                           "max_abs_err": err16, "tol_used": used16,
+                           "answers_differ": differ16}
+        if any(n != LAUNCHES_PER_FORWARD for n in per_rank):
+            raise AssertionError(f"tp=2 bf16: flash_attn launches per "
+                                 f"forward per rank {per_rank}, expected "
+                                 f"{LAUNCHES_PER_FORWARD}")
+        err8, used8, _, differ8 = _same_answers(
+            runs["tp2_int8"]["result"], want_int8, BUNDLE_BF16, "tp=2 int8",
+            exact_answers=False)
+        int8_per_rank = [r["runs"]["tp2_int8"]["counts"]["int8_linear"]
+                         / len(REQUESTS) for r in ranks_out]
+        shapes = r0["int8_shapes"]
+        worst_used = max(s["tol_used_bf16"] for r in ranks_out
+                         for s in r["int8_shapes"])
+        if worst_used > 1.0:
+            raise AssertionError(
+                f"tp=2 int8_linear beyond the bf16 tolerance: "
+                f"{[r['int8_shapes'] for r in ranks_out]}")
+        res["tp2_int8"] = {"max_abs_err": err8, "tol_used": used8,
+                           "answers_differ": differ8,
+                           "bucket1_trunk_forward": r0.get("int8_forward_ms"),
+                           "int8_launches_per_request_by_rank":
+                               int8_per_rank,
+                           "shapes": shapes, "tol_used_bf16": worst_used,
+                           "tol_used_bf16_by_rank": [
+                               max(s["tol_used_bf16"]
+                                   for s in r["int8_shapes"])
+                               for r in ranks_out]}
+        long_res = runs["sp2_f32_long"]
+        errl, usedl, _, _ = _same_answers(long_res["result"], want_long,
+                                          BUNDLE_F32, "sp=2 ring")
+        ring_calls = [r["runs"]["sp2_f32_long"]["counts"]["ring_calls"]
+                      for r in ranks_out]
+        res["sp2_ring"] = {"max_abs_err": errl, "tol_used": usedl,
+                           "ring_calls_by_rank": ring_calls,
+                           "forwards": len(long_requests),
+                           "layers": "the visual stream's "
+                                     f"{model.v_num_hidden_layers} "
+                                     "self-attentions"}
+        if any(c != model.v_num_hidden_layers * len(long_requests)
+               for c in ring_calls):
+            raise AssertionError(f"sp=2: ring calls {ring_calls}, expected "
+                                 f"{model.v_num_hidden_layers} per forward")
+        many = runs["dp2_run_many"]["result"]
+        same = exact = 0
+        for got_r, want_r in zip(many["results"], want_many):
+            if _answer_keys(got_r) != _answer_keys(want_r) or not all(
+                    math.isclose(a, b, rel_tol=BUNDLE_F32["rtol"],
+                                 abs_tol=BUNDLE_F32["atol"])
+                    for a, b in zip(_numbers(got_r), _numbers(want_r))):
+                raise AssertionError(f"dp=2 run_many: {got_r} vs {want_r}")
+            same += 1
+            exact += got_r == want_r
+        res["dp2_run_many"] = {"requests": same, "rows": many["rows"],
+                               "identical_results": exact}
+        log(f"parallel: tp=2 f32 bundles vs the card's f32 engine max abs "
+            f"err {err:.3e} ({used:.2f} of BUNDLE_F32, bit-equal {equal}); "
+            f"tp=2 bf16 run() p50 {timed['run_ms']:.1f} ms (one rank "
+            f"eager {rep['single_bf16_eager_run_ms']:.1f} ms), bundles vs "
+            f"the card's bf16 engine max abs err {err16:.3e} ({used16:.2f} "
+            f"of BUNDLE_BF16; answers reordered by bf16 ties in tasks "
+            f"{differ16}), flash_attn "
+            f"per forward per rank {per_rank}; tp=2 int8 max abs err "
+            f"{err8:.3e} ({used8:.2f} of BUNDLE_BF16; answers reordered by "
+            f"bf16 ties in tasks {differ8}), int8_linear per "
+            f"request per rank {int8_per_rank}, {len(shapes)} sliced shapes "
+            f"per rank within {worst_used:.2f} of the bf16 tolerance on both "
+            f"ranks; sp=2 ring "
+            f"calls {ring_calls} over {len(long_requests)} forwards of "
+            f"{PARALLEL_LONG_REGIONS} regions, max abs err {errl:.3e} "
+            f"({usedl:.2f} of BUNDLE_F32); dp=2 f32 run_many {same} "
+            f"requests ({many['rows']} rows) the same answers within "
+            f"BUNDLE_F32, {exact} identical")
+        rep[backend] = res
+        if backend == "gloo":
+            tp_launches = {"flash_attn": per_rank[0],
+                           "int8_linear": int8_per_rank[0]}
+
+    # 3. training: tp = 2 and dp = 2 against the single-device step, then a
+    # snapshot resumed on a fresh launch.
+    train_model = dataclasses.replace(
+        model, num_hidden_layers=2, v_num_hidden_layers=1,
+        t_biattention_id=(1,), v_biattention_id=(0,))
+    out1 = os.path.join(state, "parallel_train_a")
+    out2 = os.path.join(state, "parallel_train_b")
+    t0 = time.perf_counter()
+    tr = launch.spawn_ranks(parallel_train_rank, 2, backend="gloo",
+                            device=device, args=(dict(
+                                train_model=train_model, out=out1),),
+                            timeout_s=900)[0]
+    os.makedirs(out2, exist_ok=True)
+    shutil.copytree(os.path.join(out1, "step_00000002"),
+                    os.path.join(out2, "step_00000002"))
+    resumed = launch.spawn_ranks(parallel_train_rank, 2, backend="gloo",
+                                 device=device, args=(dict(
+                                     train_model=train_model, out=out2,
+                                     resume=True),), timeout_s=600)[0]
+    train = {"wall_s": time.perf_counter() - t0, "resume": resumed,
+             "losses_uninterrupted": tr["losses"]}
+    for name in ("tp2", "dp2"):
+        r = tr[name]
+        gaps = [{k: abs(a[k] - b[k]) / max(abs(a[k]), abs(b[k]), 1e-30)
+                 for k in b} for a, b in zip(r["metrics"],
+                                             r["single_metrics"])]
+        r["rel_gap"] = gaps
+        train[name] = r
+        for i, g in enumerate(gaps):
+            for k, v in g.items():
+                rtol = (TRAIN_PARITY_LOSS_RTOL if k != "grad_norm"
+                        else TRAIN_PARITY_RTOL if i < 2
+                        else TRAIN_PARITY_RTOL_UPDATED)
+                if v > rtol:
+                    raise AssertionError(
+                        f"{name} train step {i + 1} {k}: mesh "
+                        f"{r['metrics'][i][k]} single "
+                        f"{r['single_metrics'][i][k]} ({v:.3g} > {rtol})")
+        if r["over_limit"] or r["elements_beyond_1e-6"] > 1e-3 * r[
+                "elements"]:
+            raise AssertionError(f"{name} train parameters: "
+                                 f"{r['over_limit'][:3]}, "
+                                 f"{r['elements_beyond_1e-6']} of "
+                                 f"{r['elements']} beyond 1e-6")
+        log(f"parallel: {name} train, 3 f32 steps (depth 2/1/1) against "
+            f"the single-device step: loss and grad-norm gaps per step "
+            + "; ".join(f"loss {g['loss/total']:.2g} norm "
+                        f"{g['grad_norm']:.2g}" for g in gaps)
+            + f"; max |d param| {r['max_abs_param_diff']:.3g}, "
+            f"{r['elements_beyond_1e-6']} of {r['elements']} beyond 1e-6; "
+            f"{r['seconds']:.2f}s (single {r['single_seconds']:.2f}s)")
+    if not resumed["restored_bit_equal"] or resumed["resumed_step"] != 2:
+        raise AssertionError(f"mesh snapshot restore: {resumed}")
+    import numpy as np
+
+    if not np.allclose(resumed["losses"], tr["losses"][2:],
+                       rtol=TRAIN_RESUME_RTOL, atol=0):
+        raise AssertionError(f"resumed losses {resumed['losses']} vs "
+                             f"{tr['losses'][2:]}")
+    log(f"parallel: tp=2 snapshot of step 2 restored on a fresh launch "
+        f"bit-equal; step 3 loss {resumed['losses']} vs uninterrupted "
+        f"{tr['losses'][2:]}")
+    rep["train"] = train
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(f"parallel: phase {rep['wall_s']:.1f}s")
+    return tp_launches
+
+
 def main() -> int:
     import torch
 
@@ -4018,12 +4778,19 @@ def main() -> int:
         check_train_parity(torch, report)
         check_train(torch, report, root, state)
         check_fixed_batch_training(torch, report)
+        # parallel: the mesh on NCCL (world 1) and two ranks on this card
+        tp_launches = check_parallel(torch, report, root, state)
     # 9. the kernels line: per-shape numbers summed over the 18 launches of
     # one bucket-1 forward (6 x 38x101, 6 x 101x38, 6 x 101x101).
     fwd = [by_shape[(1, 38, 101)], by_shape[(1, 101, 38)],
            by_shape[(1, 101, 101)]]
     total = lambda key: 6 * sum(r[key] for r in fwd)  # noqa: E731
     bound = total("bound_ms")
+    # A tp = 2 rank's bucket-1 forward: the same 18 launches on 4 heads.
+    shard = {(r["B"], r["Nq"], r["Nk"]): r
+             for r in report["flash_attn_shapes"] if r["what"] == "tp=2 shard"}
+    shard_fwd = [shard[(1, 38, 101)], shard[(1, 101, 38)],
+                 shard[(1, 101, 101)]]
     kernels = {"kernels": [{
         "name": "flash_attn",
         "route": "cuda",
@@ -4038,7 +4805,8 @@ def main() -> int:
                              "train_steps": report["train"][
                                  "flash_launches_train"],
                              "eval_hook_forward": report["train"][
-                                 "eval_flash_launches"]},
+                                 "eval_flash_launches"],
+                             "tp_rank_forward": tp_launches["flash_attn"]},
         "max_abs_err": max(r["max_abs_err_f32"]
                            for r in report["flash_attn_shapes"]),
         "max_abs_err_bf16": max(r["max_abs_err_bf16"]
@@ -4053,6 +4821,16 @@ def main() -> int:
             "instantiations": report["build_notes"]["flash_attn"],
             "max_tol_used_bf16": max(r["tol_used_bf16"]
                                      for r in report["flash_attn_shapes"]),
+            "tp2_rank_forward": {
+                key: 6 * sum(r[key] for r in shard_fwd)
+                for key in ("kernel_ms", "plain_ms", "bound_ms",
+                            "library_ms")},
+            "tp2_shard_shapes": [
+                {k: r[k] for k in ("B", "Nq", "Nk", "H", "D",
+                                   "max_abs_err_f32", "max_abs_err_bf16",
+                                   "tol_used_bf16", "kernel_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")}
+                for r in shard.values()],
         },
     }, {
         "name": "nms",
@@ -4115,7 +4893,8 @@ def main() -> int:
             "per_forward_bucket_1": int8_launches_per_forward(
                 ViLBertConfig(), 1),
             "per_forward_bucket_32": int8_launches_per_forward(
-                ViLBertConfig(), 32)},
+                ViLBertConfig(), 32),
+            "tp_rank_per_request": tp_launches["int8_linear"]},
         "max_abs_err": max(r["max_abs_err_f32"]
                            for r in report["int8_linear_shapes"]),
         "max_abs_err_bf16": max(r["max_abs_err_bf16"]
@@ -4143,6 +4922,12 @@ def main() -> int:
             "max_tol_used_bf16": max(r["tol_used_bf16"]
                                      for r in report["int8_linear_shapes"]),
             "int8pack_mm_on_cuda": report["int8pack_mm_on_cuda"],
+            "tp2_sliced_shapes": report["parallel"]["gloo"]["tp2_int8"][
+                "shapes"],
+            "tp2_sliced_tol_used_bf16_by_rank": report["parallel"]["gloo"][
+                "tp2_int8"]["tol_used_bf16_by_rank"],
+            "tp2_bucket1_trunk_forward": report["parallel"]["gloo"][
+                "tp2_int8"]["bucket1_trunk_forward"],
         },
     })
     report.update(kernels)

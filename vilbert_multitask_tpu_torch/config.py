@@ -7,6 +7,7 @@ so one config JSON or one ``dataclasses.asdict`` dump feeds both packages:
   plus the overrides applied at reference worker.py:509-522).
 - :class:`TaskSpec` / :data:`TASK_REGISTRY` — the served task types.
 - :class:`EngineConfig`    — the inference-engine fields this package reads.
+- :class:`MeshConfig`      — the dp×tp(×sp) process mesh (parallel/).
 - :class:`ServingConfig`   — the web/queue tier (a full copy).
 - :class:`FrameworkConfig` — the root aggregate; :meth:`FrameworkConfig.from_dict`
   takes a JAX-package config dump and ignores the fields this package lacks.
@@ -227,8 +228,8 @@ SNLI_VE_LABELS = ("contradiction (false)", "neutral", "entailment (true)")  # wo
 class EngineConfig:
     """The inference-engine fields the port reads (a subset of the JAX
     package's EngineConfig, same names and defaults). Left out: the knobs
-    only JAX reads (the XLA compilation and AOT caches,
-    ``parallel_warmup``, ``ring_min_regions`` and the mesh)."""
+    only JAX reads (the XLA compilation and AOT caches and
+    ``parallel_warmup``)."""
 
     max_text_len: int = 37  # wordpiece tokens incl. [CLS]/[SEP] (worker.py:408)
     max_regions: int = 101  # 100 detector boxes + 1 global feature (worker.py:71,433)
@@ -259,6 +260,12 @@ class EngineConfig:
     # attention kernel for every eligible attention (see ViLBertConfig).
     use_pallas_coattention: bool = True
     use_pallas_self_attention: bool = True
+    # Region-count threshold for sequence-parallel ring attention on the
+    # visual stream (parallel/ring.py): on a mesh with an "sp" axis
+    # (MeshConfig.sp > 1), a bucket whose region count reaches it and
+    # divides by sp routes the visual self-attention through the ring;
+    # below it the dense path (or the flash kernel) runs.
+    ring_min_regions: int = 256
     # Text/label assets. None → the committed copies in this package's assets/.
     vocab_path: str | None = None
     labels_root: str | None = None
@@ -566,9 +573,23 @@ def _known(cls, raw: Mapping[str, Any]) -> dict:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout (parallel/mesh.py), the JAX package's fields and
+    defaults: ``dp`` shards request batches, ``tp`` shards weight matrices
+    (Megatron), ``sp > 1`` adds an "sp" axis for ring attention over the
+    visual stream. One process (rank) per mesh position."""
+
+    dp: int = -1  # -1: all remaining ranks
+    tp: int = 1
+    sp: int = 1
+    axis_names: Sequence[str] = ("dp", "tp")
+
+
+@dataclasses.dataclass(frozen=True)
 class FrameworkConfig:
     model: ViLBertConfig = dataclasses.field(default_factory=ViLBertConfig)
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
 
     @classmethod
@@ -578,6 +599,7 @@ class FrameworkConfig:
         return cls(
             model=ViLBertConfig(**_known(ViLBertConfig, raw.get("model", {}))),
             engine=EngineConfig(**_known(EngineConfig, raw.get("engine", {}))),
+            mesh=MeshConfig(**_known(MeshConfig, raw.get("mesh", {}))),
             serving=ServingConfig(**_known(ServingConfig,
                                            raw.get("serving", {}))),
         )

@@ -65,8 +65,23 @@ numpy), :meth:`~InferenceEngine.predict` and :meth:`~InferenceEngine.warmup`.
   ``EngineConfig.image_buckets`` (``run``) or a row bucket
   (``run_many``). NLVR2 pairs and retrieval candidates score in one
   forward with the question replicated per image row.
-
-Not in this package yet: meshes (ROADMAP A11).
+- **Meshes.** ``InferenceEngine(..., mesh=)`` (a ``parallel.build_mesh``
+  mesh; one engine per rank, every rank builds it) serves through the
+  dp×tp(×sp) mesh, as the JAX engine does with its ``mesh``: the model is
+  made tensor-parallel (parallel/tp.py) before it gets storage and
+  ``load_params`` slices each rank's shard of a global state dict
+  (parallel/sharding.py; a ``ShardedStateDict`` is taken as it is); the
+  fused head slabs stay replicated. Rank 0 serves: each dispatch (its
+  bucket, flags and the packed batch) is broadcast to every rank, each
+  rank takes its dp rows (``place_batch``), runs the same forward with
+  the tp collectives, and the decode bundle's rows are all-gathered over
+  dp for rank 0 to decode. The other ranks run :meth:`~InferenceEngine.
+  follow` until rank 0 calls :meth:`~InferenceEngine.stop_followers`;
+  they wait for each dispatch's header on a host group of its own
+  (``parallel.mesh.idle_axis``), so a server idle for longer than the
+  collectives' timeout keeps its followers. There is no row slab and
+  there are no CUDA graphs on a mesh (the JAX mesh path has no row cache
+  either); forwards run eagerly.
 """
 
 from __future__ import annotations
@@ -103,8 +118,10 @@ from vilbert_multitask_tpu_torch.features.pipeline import (
 )
 from vilbert_multitask_tpu_torch.features.store import FeatureStore
 from vilbert_multitask_tpu_torch.models.heads import (
+    SERVED_HEADS,
     build_head_slabs,
     build_int8_head_slabs,
+    stack_head_slabs,
 )
 from vilbert_multitask_tpu_torch.models.int8 import quantize_modules
 from vilbert_multitask_tpu_torch.models.vilbert import (
@@ -112,6 +129,12 @@ from vilbert_multitask_tpu_torch.models.vilbert import (
     ViLBertOutput,
     fused_head_output,
 )
+from vilbert_multitask_tpu_torch.parallel import comm
+from vilbert_multitask_tpu_torch.parallel import sharding as shd
+from vilbert_multitask_tpu_torch.parallel.mesh import axis as mesh_axis
+from vilbert_multitask_tpu_torch.parallel.mesh import idle_axis, world_axis
+from vilbert_multitask_tpu_torch.parallel.ring import RingContext
+from vilbert_multitask_tpu_torch.parallel.tp import parallelize
 from vilbert_multitask_tpu_torch.resilience import (
     CircuitBreaker,
     DeadlineExceeded,
@@ -302,6 +325,7 @@ class InferenceEngine:
         label_store: Optional[LabelMapStore] = None,
         seed: int = 0,
         replica_id: Optional[str] = None,
+        mesh=None,
         device="cuda",
     ):
         self.cfg = cfg or FrameworkConfig()
@@ -313,7 +337,14 @@ class InferenceEngine:
         # health probe declares this replica dead: every later dispatch
         # fails fast with ReplicaKilled.
         self.killed = False
-        self.mesh = None  # single device (meshes are ROADMAP A11)
+        # The dp×tp(×sp) process mesh (parallel/mesh.py), or None.
+        self.mesh = mesh
+        # Where the other ranks wait for rank 0's next dispatch header: a
+        # group whose timeout is not the collectives' (an idle server is
+        # not a dead peer). None off a mesh.
+        self._idle = idle_axis(mesh) if mesh is not None else None
+        self._ring_v = RingContext.from_mesh(
+            mesh, min_seq=ecfg.ring_min_regions)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # The f32 parity runs compare with the CPU in full f32: TF32
@@ -394,9 +425,12 @@ class InferenceEngine:
         # these tensors.
         t_up = time.perf_counter()
         with torch.device("meta"):
-            self.model = ViLBertForVLTasks(self.model_config)
+            self.model = ViLBertForVLTasks(self.model_config,
+                                           ring_v=self._ring_v)
             if self.param_quantized:
                 quantize_modules(self.model, self.compute_dtype)
+            if mesh is not None:
+                parallelize(self.model, mesh)
         self.model.to_empty(device=self.device)
         if not self.param_quantized:
             for mod in self.model.modules():
@@ -442,22 +476,47 @@ class InferenceEngine:
         is; a floating engine refuses a quantized tree.
         The copies go on the engine stream behind any dispatch already
         enqueued there, and only that stream is waited on: other engines
-        on the card keep running (and may be capturing) meanwhile."""
+        on the card keep running (and may be capturing) meanwhile.
+
+        On a mesh every rank calls it (with the same tree): a global
+        state dict is quantized first when the engine is int8, then each
+        rank keeps its shard; a ``ShardedStateDict`` (``checkpoint.
+        restore_params(..., mesh=)``) is this rank's already, and the
+        served heads' leaves are gathered over tp for the slabs."""
+        sharded = isinstance(params, shd.ShardedStateDict)
         sd = {k: quant.leaf_to(v) for k, v in params.items()}
         if self.param_quantized:
+            if sharded and any(
+                    not quant.is_quantized_leaf(v) and v.dim() >= 2
+                    and v.is_floating_point() for v in sd.values()):
+                # A shard's per-channel scales are not the matrix's.
+                raise ValueError("an int8 mesh engine takes a sharded "
+                                 "state dict quantized before sharding "
+                                 "(restore_params(..., dtype='int8'))")
             sd = quant.quantize_tree(sd)
         elif quant.tree_is_quantized(sd):
             raise ValueError("a quantized (int8) state dict needs "
                              "EngineConfig.param_dtype='int8'")
+        heads = sd
+        if self.mesh is not None:
+            if sharded:
+                heads = shd.gather_state_dict(
+                    {k: quant.leaf_to(v, self.device) for k, v in sd.items()
+                     if k.startswith(SERVED_HEADS)},
+                    self.mesh, self._global_shapes())
+            else:
+                sd = shd.shard_state_dict(sd, self.mesh)
         with self._dispatch_lock, torch.no_grad(), self._stream_ctx():
             self.model.load_state_dict(sd, strict=True)
             slabs = None
             if self.cfg.engine.fused_task_heads:
-                slabs = (build_int8_head_slabs(sd, self.model_config,
+                slabs = (build_int8_head_slabs(heads, self.model_config,
                                                self.compute_dtype,
                                                self.device)
                          if self.param_quantized else
-                         build_head_slabs(self.model, self.model_config))
+                         build_head_slabs(self.model, self.model_config)
+                         if self.mesh is None else
+                         self._replicated_head_slabs(heads))
             if self.head_slabs is None or slabs is None:
                 self.head_slabs = slabs
             else:
@@ -466,11 +525,31 @@ class InferenceEngine:
             if self._stream is not None:
                 self._stream.synchronize()
 
+    def _replicated_head_slabs(self, sd: Dict) -> Dict[str, torch.Tensor]:
+        """The floating head slabs of a mesh engine, from the global
+        served-head leaves of ``sd`` in the dtypes the single-device
+        engine's modules hold them (Linear leaves in the compute dtype,
+        the LayerNorm ``logit_fc.2`` leaves in f32), on every rank."""
+        def leaf(key):
+            dt = (torch.float32 if ".logit_fc.2." in key
+                  else self.compute_dtype)
+            return torch.as_tensor(sd[key]).to(self.device, dt)
+
+        return stack_head_slabs(leaf, self.model_config)
+
+    def _global_shapes(self) -> Dict[str, tuple]:
+        """Every upstream key's global shape (a meta model of the config)."""
+        with torch.device("meta"):
+            full = ViLBertForVLTasks(self.model_config)
+        return {k: tuple(v.shape) for k, v in full.state_dict().items()}
+
     def state_dict(self) -> Dict:
         """The served weights as an upstream-key state dict of the engine's
         own tensors: ``{"int8", "scale"}`` pairs and f32 vectors on an int8
-        engine (``load_params`` takes it back unchanged)."""
-        return self.model.state_dict()
+        engine (``load_params`` takes it back unchanged). On a mesh, this
+        rank's shards (a ``ShardedStateDict``)."""
+        sd = self.model.state_dict()
+        return shd.ShardedStateDict(sd) if self.mesh is not None else sd
 
     def book_boot_time(self, phase: str, seconds: float) -> None:
         """Accumulate one boot-phase duration (upload_s / compile_s);
@@ -804,10 +883,21 @@ class InferenceEngine:
         nt = self.cfg.engine.max_text_len
         slots = pack[:, 3 * nt + 1]
         slab = self._slab
-        task_ids = pack[:, 3 * nt:3 * nt + 1]
         image_mask = slab["image_mask"].index_select(0, slots)
-        args = (pack[:, :nt], slab["features"].index_select(0, slots),
-                slab["spatials"].index_select(0, slots), pack[:, nt:2 * nt],
+        return self._forward(
+            pack, slab["features"].index_select(0, slots),
+            slab["spatials"].index_select(0, slots), image_mask,
+            collect_attention)
+
+    def _forward(self, pack: torch.Tensor, features: torch.Tensor,
+                 spatials: torch.Tensor, image_mask: torch.Tensor,
+                 collect_attention: bool
+                 ) -> Tuple[ViLBertOutput, torch.Tensor, List[tuple]]:
+        """The trunk, the heads and the flattened decode bundle over the
+        pack's text columns and the rows' image inputs."""
+        nt = self.cfg.engine.max_text_len
+        task_ids = pack[:, 3 * nt:3 * nt + 1]
+        args = (pack[:, :nt], features, spatials, pack[:, nt:2 * nt],
                 pack[:, 2 * nt:3 * nt], image_mask, None, task_ids)
         if self.head_slabs is not None:
             trunk_out = self.model.trunk(
@@ -857,6 +947,9 @@ class InferenceEngine:
         the bundle's copy to pinned host memory. Returns without waiting
         on the card. ``keep_out`` keeps the model output (copied off the
         graph's static tensors)."""
+        if self.mesh is not None:
+            return self._mesh_run(bucket, collect_attention, text, rows,
+                                  keep_out)
         self._row_slab()  # built outside the (non-reentrant) lock hold
         with self._dispatch_lock, torch.inference_mode(), \
                 self._stream_ctx():
@@ -894,6 +987,121 @@ class InferenceEngine:
             event = torch.cuda.Event()
             event.record(self._stream)
             return _Dispatch(host, spec, event, out if keep_out else None)
+
+    # ------------------------------------------------------------- the mesh
+    # A dispatch's header, broadcast from rank 0 on the host over the idle
+    # group: [op, bucket, collect, keep_out]. _OP_STOP ends follow().
+    _OP_STOP, _OP_FORWARD = 0, 1
+
+    def _mesh_rows(self, rows: Sequence[tuple], bucket: int):
+        """A dispatch's image inputs as dense host tensors (bucket, Nv, ·):
+        the real rows, then pad rows (zero features, the global box,
+        mask[0] = 1: the slab's slot 0)."""
+        nv = self.cfg.engine.max_regions
+        dim = self.cfg.model.v_feature_size
+        feats = torch.zeros((bucket, nv, dim), dtype=self.transfer_dtype)
+        spat = torch.zeros((bucket, nv, 5))
+        mask = torch.zeros((bucket, nv), dtype=torch.int32)
+        spat[:, 0] = torch.from_numpy(GLOBAL_BOX)
+        mask[:, 0] = 1
+        for i, (row, _key) in enumerate(rows):
+            feats[i] = torch.as_tensor(row["features"]).to(feats.dtype)
+            spat[i] = torch.as_tensor(np.asarray(row["spatials"]))
+            mask[i] = torch.as_tensor(np.asarray(row["image_mask"]))
+        return feats, spat, mask
+
+    def _mesh_exchange(self, header: Optional[torch.Tensor] = None,
+                       payload: Optional[tuple] = None):
+        """One mesh dispatch, on every rank (rank 0 passes the header and
+        the host payload; the others receive them): broadcast, this
+        rank's dp rows, the forward, and the bundle's rows (and, when
+        kept, the output) gathered over dp. Returns (out, host bundle,
+        spec), or None at a stop message."""
+        world = world_axis(self.mesh)
+        head = header if header is not None else torch.zeros(
+            4, dtype=torch.long)
+        op, bucket, collect, keep_out = comm.broadcast(
+            head, self._idle).tolist()
+        if op == self._OP_STOP:
+            return None
+        ecfg, nt = self.cfg.engine, self.cfg.engine.max_text_len
+        nv, dim = ecfg.max_regions, self.cfg.model.v_feature_size
+        shapes = (((bucket, 3 * nt + 2), torch.long),
+                  ((bucket, nv, dim), self.transfer_dtype),
+                  ((bucket, nv, 5), torch.float32),
+                  ((bucket, nv), torch.int32))
+        parts = []
+        for i, (shape, dt) in enumerate(shapes):
+            t = (payload[i].to(self.device) if payload is not None
+                 else torch.empty(shape, dtype=dt, device=self.device))
+            parts.append(comm.broadcast(t, world))
+        batch = shd.place_batch(
+            dict(zip(("pack", "features", "spatials", "image_mask"), parts)),
+            self.mesh, global_batch=True)
+        out, flat, spec = self._forward(
+            batch["pack"], batch["features"], batch["spatials"],
+            batch["image_mask"], bool(collect))
+        dp = mesh_axis(self.mesh, "dp")
+        rows_sharded = shd.shards_batch(bucket, dp.size)
+        if rows_sharded:  # every leaf's leading dim counts rows (or pairs)
+            flat = comm.all_gather(flat, dp, 0)
+            spec = [(path, (shape[0] * dp.size, *shape[1:]), is_float)
+                    for path, shape, is_float in spec]
+        if keep_out:
+            out = self._gather_output(out, rows_sharded)
+        return out, flat.cpu(), spec
+
+    def _gather_output(self, out: ViLBertOutput, rows_sharded: bool
+                       ) -> ViLBertOutput:
+        """The model output of every rank's rows (and every tp rank's
+        heads of the attention maps), on every rank."""
+        dp, tp = mesh_axis(self.mesh, "dp"), mesh_axis(self.mesh, "tp")
+
+        def rows(x):
+            return comm.all_gather(x, dp, 0) if rows_sharded else x
+
+        fields = {f.name: rows(getattr(out, f.name))
+                  for f in dataclasses.fields(out)
+                  if isinstance(getattr(out, f.name), torch.Tensor)}
+        fields["attn_data_list"] = [
+            tuple(rows(comm.all_gather(p, tp, 1)) if p is not None else None
+                  for p in maps) for maps in out.attn_data_list]
+        return dataclasses.replace(out, **fields)
+
+    def _mesh_run(self, bucket: int, collect_attention: bool, text: dict,
+                  rows: Sequence[tuple], keep_out: bool) -> _Dispatch:
+        """Rank 0's dispatch on a mesh (see :meth:`_mesh_exchange`)."""
+        if world_axis(self.mesh).index != 0:
+            raise RuntimeError("on a mesh only rank 0 dispatches; the other "
+                               "ranks run follow()")
+        pack = torch.from_numpy(self._pack_host(text, [0] * bucket))
+        header = torch.tensor([self._OP_FORWARD, bucket,
+                               int(collect_attention), int(keep_out)])
+        with self._dispatch_lock, torch.inference_mode(), \
+                self._stream_ctx():
+            out, host, spec = self._call_forward(
+                lambda: self._mesh_exchange(
+                    header, (pack, *self._mesh_rows(rows, bucket))))
+        return _Dispatch(host, spec, None, out if keep_out else None)
+
+    def follow(self) -> None:
+        """The ranks other than 0 of a mesh: run every dispatch rank 0
+        broadcasts, collectives included, until it sends the stop message
+        (:meth:`stop_followers`)."""
+        if self.mesh is None:
+            raise RuntimeError("follow() needs a mesh")
+        while True:
+            with self._dispatch_lock, torch.inference_mode(), \
+                    self._stream_ctx():
+                if self._mesh_exchange() is None:
+                    return
+
+    def stop_followers(self) -> None:
+        """Rank 0 of a mesh: end every other rank's :meth:`follow`."""
+        if self.mesh is None or world_axis(self.mesh).size == 1:
+            return
+        with self._dispatch_lock, self._stream_ctx():
+            self._mesh_exchange(torch.tensor([self._OP_STOP, 0, 0, 0]))
 
     def bundle(self, req: PreparedRequest, *, collect_attention: bool = False
                ) -> Tuple[ViLBertOutput, dict]:
@@ -1086,6 +1294,8 @@ class InferenceEngine:
         raises.
         """
         del parallel  # one bucket at a time (see above)
+        if self.mesh is not None:
+            return  # a mesh runs its forwards eagerly (no graphs)
         buckets = list(buckets if buckets is not None
                        else self.cfg.engine.all_row_buckets())
         self._row_slab()

@@ -67,7 +67,7 @@ class TwoStreamEncoder(nn.Module):
     # rematerialization must replay.
     generator: Optional[torch.Generator] = None
 
-    def __init__(self, cfg: ViLBertConfig):
+    def __init__(self, cfg: ViLBertConfig, ring_v=None):
         super().__init__()
         self.cfg = cfg
         self.layer = nn.ModuleList(
@@ -92,6 +92,11 @@ class TwoStreamEncoder(nn.Module):
                 cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob,
                 cfg.layer_norm_eps, cfg.use_pallas_coattention)
             for _ in range(cfg.num_connection_layers))
+        # ``ring_v`` (parallel.ring.RingContext) routes the VISUAL stream's
+        # self-attention through the ring when it engages (ops/attention.py
+        # FusedSelfAttention), as the JAX encoder's ``ring_v`` does.
+        for layer in self.v_layer:
+            layer.attention.self.ring = ring_v
 
     def _run(self, layer: nn.Module, *args, **kwargs):
         if self.cfg.remat and torch.is_grad_enabled():

@@ -73,7 +73,14 @@ class PredictionTransform(nn.Module):
 
 
 class TextPredictionHead(nn.Module):
-    """Masked-LM head: transform + decoder tied to the word embeddings."""
+    """Masked-LM head: transform + decoder tied to the word embeddings.
+
+    Under tensor parallelism (parallel/tp.py) the decoder holds this
+    rank's rows of the vocabulary-sharded table, and its logits are
+    all-gathered over tp (``tp_axis``) before the bias, so the loss sees
+    the whole vocabulary."""
+
+    tp_axis = None  # set by parallel.tp.parallelize
 
     def __init__(self, cfg: ViLBertConfig, word_embeddings: nn.Embedding):
         super().__init__()
@@ -85,6 +92,10 @@ class TextPredictionHead(nn.Module):
 
     def forward(self, hidden):
         logits = self.decoder(self.transform(hidden))
+        if self.tp_axis is not None:
+            from vilbert_multitask_tpu_torch.parallel.tp import gather_from_tp
+
+            logits = gather_from_tp(logits, self.tp_axis, -1)
         return logits + self.bias.to(logits.dtype)
 
 

@@ -61,12 +61,12 @@ class ViLBertOutput:
 class ViLBertModel(nn.Module):
     """Trunk (upstream ``bert``): embeddings + two-stream encoder + poolers."""
 
-    def __init__(self, cfg: ViLBertConfig):
+    def __init__(self, cfg: ViLBertConfig, ring_v=None):
         super().__init__()
         self.cfg = cfg
         self.embeddings = TextEmbeddings(cfg)
         self.v_embeddings = ImageEmbeddings(cfg)
-        self.encoder = TwoStreamEncoder(cfg)
+        self.encoder = TwoStreamEncoder(cfg, ring_v)
         self.t_pooler = Pooler(cfg.hidden_size, cfg.bi_hidden_size)
         self.v_pooler = Pooler(cfg.v_hidden_size, cfg.bi_hidden_size)
 
@@ -101,12 +101,17 @@ def _fuse(cfg: ViLBertConfig, pooled_t, pooled_v):
 
 
 class ViLBertForVLTasks(nn.Module):
-    """Trunk + all 9 heads; output order matches the reference 10-tuple."""
+    """Trunk + all 9 heads; output order matches the reference 10-tuple.
 
-    def __init__(self, cfg: ViLBertConfig):
+    ``ring_v`` (``parallel.ring.RingContext``) opts the visual stream into
+    sequence-parallel ring attention over the mesh's sp axis; dense and
+    ring instances share state dicts. Tensor parallelism is applied to a
+    built model by ``parallel.tp.parallelize``."""
+
+    def __init__(self, cfg: ViLBertConfig, ring_v=None):
         super().__init__()
         self.config = cfg
-        self.bert = ViLBertModel(cfg)
+        self.bert = ViLBertModel(cfg, ring_v)
         bi = cfg.bi_hidden_size
         eps = cfg.layer_norm_eps
         self.vil_prediction = SimpleClassifier(bi, bi * 2, cfg.num_labels, eps)

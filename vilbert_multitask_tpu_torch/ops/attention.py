@@ -123,16 +123,27 @@ class FusedSelfAttention(nn.Module):
     The JAX package fuses the three projections into one ``qkv`` kernel;
     here they stay three ``Linear`` layers, so each projection's output is
     contiguous and its ``(B, N, H, D)`` view goes to the kernel as it is.
+
+    The route is the JAX package's: the ring (``ring``, a
+    ``parallel.ring.RingContext``, set on the visual stream of a model
+    built with ``ring_v``) when it engages at this sequence length and
+    there is no dropout; then the flash kernel when ``use_pallas``, no
+    dropout and ``head_dim % 128 == 0``; then dense. Under tensor
+    parallelism (parallel/tp.py) the projections hold this rank's heads
+    and ``num_heads`` counts them; ``head_dim`` does not change.
     """
 
     # The probabilities' dropout generator (models/layers.py
     # set_dropout_generator); None draws from torch's default one.
     generator: Optional[torch.Generator] = None
+    # parallel.ring.RingContext, or None (dense / kernel only).
+    ring = None
 
     def __init__(self, hidden_size: int, num_heads: int,
                  dropout_rate: float = 0.1, use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
         self.dropout_rate = dropout_rate
         self.use_pallas = use_pallas
         self.query = nn.Linear(hidden_size, hidden_size)
@@ -141,13 +152,27 @@ class FusedSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        head_dim = x.shape[-1] // self.num_heads
+        use_dropout = self.training and self.dropout_rate > 0.0
+        if (self.ring is not None and not use_dropout
+                and self.ring.engages(x.shape[1])):
+            from vilbert_multitask_tpu_torch.parallel.ring import (
+                ring_self_attention,
+            )
+
+            shape = (*x.shape[:-1], self.num_heads, self.head_dim)
+            q, k, v = (proj(x).view(shape)
+                       for proj in (self.query, self.key, self.value))
+            # Accumulate at >= f32, as the dense softmax does.
+            ctx = ring_self_attention(
+                self.ring, q, k, v, mask_bias,
+                dtype=torch.promote_types(q.dtype, torch.float32))
+            return ctx.to(q.dtype).reshape(*x.shape[:-1], -1), None
         # Self-attention probs are never surfaced (the reference's
         # attn_data_list carries only the bridge maps), so dropout and the
         # head width alone gate the kernel.
         return cross_attention(
             x, x, mask_bias, self.query, self.key, self.value,
             num_heads=self.num_heads,
-            use_pallas=self.use_pallas and head_dim % 128 == 0,
+            use_pallas=self.use_pallas and self.head_dim % 128 == 0,
             need_probs=False, dropout_rate=self.dropout_rate,
             training=self.training, generator=self.generator)

@@ -18,8 +18,14 @@ of this package (checkpoint/store.py) or the reference's
 ``pytorch_model_*.bin``, cast on the host to ``EngineConfig.param_dtype``
 (``"int8"`` quantizes it), and ``--detector-checkpoint`` reads a maskrcnn
 detector ``.pth`` (torch files: the JAX package's Orbax directories are not
-read here). What the JAX app does that this one does not: meshes and the
-XLA/AOT compile caches (no counterpart on this backend).
+read here). What the JAX app does that this one does not: the XLA/AOT
+compile caches (no counterpart on this backend).
+
+On a process mesh (the ranks started by ``parallel/launch.py``, ``--mesh
+dp,tp[,sp]``; NCCL takes one card per rank), the mesh is built before the
+restore, as the JAX app builds it: every rank restores its shard and
+builds the mesh engine; rank 0 serves, and the other ranks follow its
+dispatches (:func:`follow_rank`) until it stops.
 """
 
 from __future__ import annotations
@@ -87,6 +93,12 @@ class ServeApp:
             max_deliveries=s.queue_max_deliveries)
         self.store = ResultStore(s.results_db_path)
         if engine is None:
+            # A launch of several ranks serves through the process mesh,
+            # built before the restore so each rank reads its own shard.
+            mesh = mesh_of_world(self.cfg)
+            if mesh is not None and s.pool_replicas > 1:
+                raise ValueError("a mesh engine spans the ranks: "
+                                 "pool_replicas must be 1")
             params = None
             restore = None
             if checkpoint_path is not None:
@@ -99,7 +111,7 @@ class ServeApp:
                 # fat), in the background while the detector is built.
                 restore = restore_params_async(
                     checkpoint_path, dtype=self.cfg.engine.param_dtype,
-                    cfg=self.cfg.model)
+                    cfg=self.cfg.model, mesh=mesh)
             store = FeatureStore(feature_root)
             if live_extract:
                 store = self._live_store(store, detector_checkpoint, device)
@@ -116,7 +128,7 @@ class ServeApp:
                 for i in range(max(1, s.pool_replicas)):
                     engines.append(InferenceEngine(
                         self.cfg, params=params, feature_store=store,
-                        replica_id=f"r{i}", device=device))
+                        replica_id=f"r{i}", mesh=mesh, device=device))
                     if params is None:
                         params = engines[0].state_dict()
                 engine = engines
@@ -465,7 +477,12 @@ class ServeApp:
         upstream ``.bin``/``.pth`` (:func:`..checkpoint.restore_params`),
         cast to the engine's ``param_dtype``, so an int8 deployment
         re-quantizes an incoming f32 checkpoint; ``params`` an
-        upstream-layout state dict."""
+        upstream-layout state dict. Not on a mesh: its ranks load together
+        (restart the launch with the new checkpoint)."""
+        if self.engine.mesh is not None:
+            raise NotImplementedError(
+                "rolling_swap on a mesh: every rank must load the new "
+                "weights; restart the launch with --checkpoint")
         if params is None:
             if checkpoint_path is None:
                 raise ValueError("rolling_swap needs checkpoint_path or "
@@ -617,6 +634,37 @@ class ServeApp:
             obs.clear_recorder()
         else:
             self.recorder.close()
+        # A mesh engine's other ranks follow rank 0's dispatches: end them.
+        for rep in getattr(self.engine, "replicas", []):
+            stop = getattr(rep.engine, "stop_followers", None)
+            if stop is not None:
+                stop()
+
+
+def mesh_of_world(cfg: FrameworkConfig):
+    """The process mesh of ``cfg.mesh`` when this process is one rank of a
+    world of several (the launcher's), else None (one device)."""
+    from vilbert_multitask_tpu_torch.parallel import build_mesh, distributed
+
+    if distributed.world_size() > 1:
+        return build_mesh(cfg.mesh)
+    return None
+
+
+def follow_rank(cfg: FrameworkConfig, *, checkpoint_path: Optional[str] = None,
+                device: str = "cuda") -> None:
+    """A rank other than 0 of a serving launch: build the mesh (as rank 0's
+    ``ServeApp`` does), restore this rank's shard, build the mesh engine
+    and run rank 0's dispatches until it stops."""
+    mesh = mesh_of_world(cfg)
+    params = None
+    if checkpoint_path is not None:
+        from vilbert_multitask_tpu_torch.checkpoint import restore_params
+
+        params = restore_params(checkpoint_path,
+                                dtype=cfg.engine.param_dtype,
+                                cfg=cfg.model, mesh=mesh)
+    InferenceEngine(cfg, params=params, mesh=mesh, device=device).follow()
 
 
 def main(argv=None) -> None:
@@ -650,11 +698,28 @@ def main(argv=None) -> None:
     p.add_argument("--detector-checkpoint", default=None,
                    help="maskrcnn_benchmark detector checkpoint (.pth, "
                         "torch layout) for --live-extract")
+    p.add_argument("--mesh", default=None, metavar="DP,TP[,SP]",
+                   help="the process mesh of a launch of several ranks "
+                        "(python -m vilbert_multitask_tpu_torch.parallel."
+                        "launch --nproc N --backend gloo|nccl -- "
+                        "vilbert_multitask_tpu_torch.serve.app ...); "
+                        "default: dp over every rank")
     args = p.parse_args(argv)
+
+    from vilbert_multitask_tpu_torch.parallel import distributed
+    from vilbert_multitask_tpu_torch.parallel.mesh import parse_mesh
 
     cfg = FrameworkConfig()
     if args.tiny:
         cfg = dataclasses.replace(cfg, model=cfg.model.tiny())
+    if args.mesh:
+        cfg = dataclasses.replace(cfg, mesh=parse_mesh(args.mesh))
+    # One rank of a launch (its variables set): join the world first.
+    distributed.initialize(device=args.device)
+    if distributed.rank() != 0:
+        follow_rank(cfg, checkpoint_path=args.checkpoint, device=args.device)
+        distributed.shutdown()
+        return
     ports = {k: v for k, v in (("http_port", args.http_port),
                                ("ws_port", args.ws_port)) if v is not None}
     cfg = dataclasses.replace(cfg, serving=dataclasses.replace(
@@ -688,6 +753,7 @@ def main(argv=None) -> None:
         pass
     print(f"draining (grace {s.drain_grace_s:.0f}s)...")
     app.stop()
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,14 @@ card unless the caller asks for the CPU). Its data half is
   picks up step, parameters, moments and the dropout generator where the
   newest snapshot left off, so a resumed run replays the uninterrupted
   run's batches and dropout masks.
+- **On a mesh** (``Trainer(..., mesh=)``, one trainer per rank, every rank
+  of the mesh running the same loop): the model is tensor-parallel
+  (parallel/tp.py), every rank draws the same global batch from the step
+  and runs its dp rows (train/step.py), snapshots are gathered and written
+  by rank 0 in the single-device format, and a resume slices each rank's
+  shard from it. ``EvalHook(..., mesh=)`` evaluates on a mesh engine over
+  the sharded parameters: rank 0 runs the harness while the other ranks
+  follow its dispatches.
 """
 
 from __future__ import annotations
@@ -106,7 +114,8 @@ class EvalHook:
 
     def __init__(self, cfg: FrameworkConfig, feature_store,
                  tasks: Dict[str, Sequence[Dict]], *, batch: int = 8,
-                 label_store=None, tokenizer=None, device="cuda"):
+                 label_store=None, tokenizer=None, mesh=None,
+                 device="cuda"):
         from vilbert_multitask_tpu_torch.evals.harness import Evaluator
 
         unknown = set(tasks) - set(Evaluator.EVAL_FNS)
@@ -121,29 +130,44 @@ class EvalHook:
         self.label_store = label_store
         self.tokenizer = tokenizer
         self.device = torch.device(device)
+        self.mesh = mesh
         self._engine = None
 
     def __call__(self, step: int, state: TrainState) -> Dict[str, float]:
         from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
         from vilbert_multitask_tpu_torch.evals.harness import Evaluator
 
+        from vilbert_multitask_tpu_torch.parallel.mesh import world_axis
+        from vilbert_multitask_tpu_torch.parallel.sharding import (
+            ShardedStateDict,
+        )
+
         params = {k: v.detach() for k, v in state.state_dict().items()}
+        if self.mesh is not None:  # this rank's shards of the parameters
+            params = ShardedStateDict(params)
         if self._engine is None:
             self._engine = InferenceEngine(
                 self.cfg, params=params, feature_store=self.store,
                 label_store=self.label_store, tokenizer=self.tokenizer,
-                device=self.device)
+                mesh=self.mesh, device=self.device)
             if self.device.type == "cuda":
                 self._engine.warmup()
         else:
             self._engine.load_params(params)
+        if world_axis(self.mesh).index != 0:
+            self._engine.follow()  # rank 0 scores; the others follow it
+            return {}
         ev = Evaluator(self._engine, batch=self.batch)
         out: Dict[str, float] = {}
-        for task, examples in self.tasks.items():
-            scores = ev.run(task, examples)
-            for k, v in scores.items():
-                if k not in self._META_KEYS and isinstance(v, (int, float)):
-                    out[f"eval/{task}/{k}"] = round(float(v), 5)
+        try:
+            for task, examples in self.tasks.items():
+                scores = ev.run(task, examples)
+                for k, v in scores.items():
+                    if (k not in self._META_KEYS
+                            and isinstance(v, (int, float))):
+                        out[f"eval/{task}/{k}"] = round(float(v), 5)
+        finally:
+            self._engine.stop_followers()
         return out
 
 
@@ -158,7 +182,8 @@ class Trainer:
                  init_params=None,
                  eval_fn: Optional[Callable[[int, TrainState],
                                             Dict[str, float]]] = None,
-                 log_fn: Callable[[str], None] = print, device="cuda"):
+                 log_fn: Callable[[str], None] = print, mesh=None,
+                 device="cuda"):
         from vilbert_multitask_tpu_torch.checkpoint.store import (
             restore_train_state,
         )
@@ -170,10 +195,16 @@ class Trainer:
         from vilbert_multitask_tpu_torch.models.vilbert import (
             ViLBertForVLTasks,
         )
+        from vilbert_multitask_tpu_torch.parallel.ring import RingContext
+        from vilbert_multitask_tpu_torch.parallel.sharding import (
+            shard_state_dict,
+        )
+        from vilbert_multitask_tpu_torch.parallel.tp import parallelize
 
         self.cfg, self.sampler, self.loop = cfg, sampler, loop
         self.out_dir, self.log, self.eval_fn = out_dir, log_fn, eval_fn
         self.device = resolve_device(device)
+        self.mesh = mesh
         # The contrastive loss reshapes by loop.retrieval_group_size; a
         # dataset laying out another group width would score distractors
         # as positives.
@@ -197,20 +228,27 @@ class Trainer:
                                         use_pallas_self_attention=False)
         if init_params is None:
             init_params = init_state_dict(model_cfg, loop.seed)
+        ring_v = RingContext.from_mesh(
+            mesh, min_seq=cfg.engine.ring_min_regions)
         with torch.device("meta"):  # no host init of weights loaded next
-            self.model = ViLBertForVLTasks(model_cfg)
+            self.model = ViLBertForVLTasks(model_cfg, ring_v=ring_v)
+            if mesh is not None:
+                parallelize(self.model, mesh)
         self.model.to_empty(device=self.device)
         self.model.tie_weights()
-        self.model.load_state_dict(
-            {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                else v).float()
-             for k, v in init_params.items()}, strict=True)
+        weights = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                      else v).float()
+                   for k, v in init_params.items()}
+        if mesh is not None:
+            weights = shard_state_dict(weights, mesh)
+        self.model.load_state_dict(weights, strict=True)
         self.model.train()
         self.tx = default_optimizer(
             learning_rate=loop.learning_rate, warmup_steps=loop.warmup_steps,
             total_steps=loop.total_steps)
         self._steps: Dict[str, Callable] = {}  # head → its step
-        self.state = create_train_state(self.model, self.tx, seed=loop.seed)
+        self.state = create_train_state(self.model, self.tx, seed=loop.seed,
+                                        mesh=mesh)
         resumed = latest_checkpoint(out_dir) if out_dir else None
         if resumed is not None:
             path, step = resumed
@@ -232,8 +270,12 @@ class Trainer:
             save_train_state,
         )
 
+        from vilbert_multitask_tpu_torch.parallel.mesh import world_axis
+
         save_train_state(os.path.join(self.out_dir, f"step_{step:08d}"),
                          self.state)
+        if world_axis(self.mesh).index != 0:
+            return  # rank 0 wrote the snapshot and keeps the retention
         # Retention: keep the newest keep_ckpts snapshots.
         snaps = sorted(
             n for n in os.listdir(self.out_dir) if STEP_DIR_RE.match(n))
@@ -311,6 +353,12 @@ def main(argv=None) -> None:
     p.add_argument("--lr", type=float, default=4e-5)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--ckpt-every", type=int, default=200)
+    p.add_argument("--mesh", default=None, metavar="DP,TP[,SP]",
+                   help="train on a process mesh of this shape (dp -1: "
+                        "the remaining ranks); the ranks come from the "
+                        "launcher (python -m vilbert_multitask_tpu_torch."
+                        "parallel.launch --nproc N --backend gloo|nccl -- "
+                        "vilbert_multitask_tpu_torch.train.loop ...)")
     p.add_argument("--eval-every", type=int, default=0,
                    help="run the eval harness on the current params every N "
                         "steps (needs --data-root with eval_<task>.jsonl "
@@ -320,6 +368,19 @@ def main(argv=None) -> None:
     device = "cpu" if args.cpu else "cuda"
 
     cfg = FrameworkConfig()
+    mesh = None
+    if args.mesh:
+        from vilbert_multitask_tpu_torch.parallel import build_mesh
+        from vilbert_multitask_tpu_torch.parallel.distributed import (
+            initialize,
+        )
+        from vilbert_multitask_tpu_torch.parallel.mesh import parse_mesh
+
+        cfg = dataclasses.replace(cfg, mesh=parse_mesh(args.mesh))
+        if not initialize(device=device):
+            raise SystemExit("--mesh needs the launcher's ranks "
+                             "(parallel/launch.py)")
+        mesh = build_mesh(cfg.mesh)
     if args.tiny:
         cfg = dataclasses.replace(cfg, model=cfg.model.tiny())
     heads = [h.strip() for h in args.heads.split(",") if h.strip()]
@@ -369,15 +430,20 @@ def main(argv=None) -> None:
                 eval_tasks[name] = load_jsonl(path)
         if eval_tasks:
             eval_fn = EvalHook(cfg, store, eval_tasks, label_store=labels,
-                               tokenizer=tok, device=device)
+                               tokenizer=tok, mesh=mesh, device=device)
             print(f"# eval tasks: {sorted(eval_tasks)}")
         else:
             print("# --eval-every set but no eval_<task>.jsonl under "
                   "--data-root; skipping evals")
     trainer = Trainer(cfg, MultiTaskSampler(datasets), loop,
-                      out_dir=args.out, eval_fn=eval_fn, device=device)
+                      out_dir=args.out, eval_fn=eval_fn, mesh=mesh,
+                      device=device)
     final = trainer.train()
     print(json.dumps({"final": final}))
+    if mesh is not None:
+        from vilbert_multitask_tpu_torch.parallel.distributed import shutdown
+
+        shutdown()
 
 
 if __name__ == "__main__":

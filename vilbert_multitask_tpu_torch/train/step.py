@@ -25,13 +25,31 @@ Mixed precision: the JAX trainer computes in bf16 over f32 master
 parameters (``Trainer``, loop.py:615-620); here the parameters stay f32 and
 the forward runs under ``torch.autocast`` (``make_train_step``'s
 ``autocast_dtype``); the losses are f32 either way.
+
+On a mesh (``create_train_state(..., mesh=)`` over a model made
+tensor-parallel by ``parallel.tp.parallelize``; the JAX package's
+``shard_train_state``):
+
+- each rank holds its tp shard of every parameter, and Adam's moments
+  mirror it; AdamW runs on the shards;
+- every rank draws the same global batch; the model runs on this rank's
+  dp rows (``place_batch(..., global_batch=True)``) and its outputs are
+  all-gathered over dp, so every rank computes the loss of the global
+  batch, as the JAX step does; each rank's gradient then holds its rows'
+  part, and the dp ranks' gradients are summed (all-reduce);
+- the global norm for clipping sums the squared norms of the tp-sharded
+  leaves over tp and counts each replicated leaf once, accumulating in
+  f64;
+- the dropout generator is seeded ``seed + dp index``: the tp ranks of one
+  dp group draw the same masks for their replicated activations, and the
+  dp groups draw their own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +78,10 @@ class TrainState:
     nu: Dict[str, torch.Tensor]
     generator: Optional[torch.Generator] = None
     aliases: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # The process mesh, and the dim each tp-sharded parameter is split on
+    # (parallel.tp.shard_dims); None / empty on one device.
+    mesh: Any = None
+    shard_dims: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The parameters under every upstream key the model's
@@ -79,16 +101,33 @@ def is_decayed(name: str, param: torch.Tensor) -> bool:
                                                                "scale")
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, *,
+                        sharded: Optional[Sequence[bool]] = None,
+                        tp_axis=None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """optax's ``clip_by_global_norm``: the gradients as they are while
     their global norm is below ``max_norm``, else ``(g / norm) * max_norm``
     (new tensors); and the norm, in the gradients' dtype. Each leaf's norm
     is accumulated in f64: torch's f32 norm on the CPU sums in f32 and
     reads a leaf of millions of elements low (the full-width word
-    embeddings hold 23 M)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        grads, 2, dtype=torch.float64))).to(grads[0].dtype)
+    embeddings hold 23 M).
+
+    On a mesh, ``sharded[i]`` says whether ``grads[i]`` is this rank's tp
+    shard of its leaf: the squared norms of the sharded leaves are summed
+    over ``tp_axis`` and each replicated leaf (the same on every tp rank)
+    is counted once."""
+    norms = torch._foreach_norm(grads, 2, dtype=torch.float64)
+    if tp_axis is None or tp_axis.size == 1:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        from vilbert_multitask_tpu_torch.parallel import comm
+
+        sq = torch.stack(norms) ** 2
+        mask = torch.tensor(list(sharded), device=sq.device)
+        parts = torch.stack([sq[mask].sum(), sq[~mask].sum()])
+        shard_sq = comm.all_reduce(parts[:1].clone(), tp_axis)
+        norm = torch.sqrt(shard_sq[0] + parts[1])
+    norm = norm.to(grads[0].dtype)
     if bool(norm < max_norm):
         return grads, norm
     clipped = torch._foreach_div(grads, norm)
@@ -144,7 +183,14 @@ class AdamW:
         mu = [state.mu[k] for k in names]
         nu = [state.nu[k] for k in names]
         dtype = params[0].dtype
-        g, norm = clip_by_global_norm(g, self.grad_clip)
+        tp = None
+        if state.mesh is not None:
+            from vilbert_multitask_tpu_torch.parallel.mesh import axis
+
+            tp = axis(state.mesh, "tp")
+        g, norm = clip_by_global_norm(
+            g, self.grad_clip, sharded=[k in state.shard_dims for k in names],
+            tp_axis=tp)
         # mu = (1 - b1)·g + b1·mu ; nu = (1 - b2)·g² + b2·nu
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b1))
@@ -185,22 +231,48 @@ def default_optimizer(learning_rate: float = 4e-5, weight_decay: float = 0.01,
 
 
 def create_train_state(model: nn.Module, tx: AdamW, *,
-                       seed: int = 0) -> TrainState:
+                       seed: int = 0, mesh=None) -> TrainState:
     """Step 0 over ``model``'s parameters, zero moments, and a dropout
     generator on the parameters' device seeded with ``seed`` (given to
-    every dropout of the model)."""
+    every dropout of the model). On a ``mesh`` the model is this rank's
+    tp-parallel one: its parameters are shards, the moments mirror them,
+    and the generator is seeded ``seed + dp index``."""
     params = dict(model.named_parameters())
     by_id = {id(p): k for k, p in params.items()}
     aliases = {k: by_id[id(v)]
                for k, v in model.state_dict(keep_vars=True).items()
                if k not in params and id(v) in by_id}
     device = next(iter(params.values())).device
+    dims: Dict[str, int] = {}
+    if mesh is not None:
+        from vilbert_multitask_tpu_torch.parallel.mesh import axis
+        from vilbert_multitask_tpu_torch.parallel.tp import shard_dims
+
+        dims = shard_dims(model)
+        seed += axis(mesh, "dp").index
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     set_dropout_generator(model, generator)
     mu, nu = tx.init(params)
     return TrainState(step=0, params=params, mu=mu, nu=nu,
-                      generator=generator, aliases=aliases)
+                      generator=generator, aliases=aliases, mesh=mesh,
+                      shard_dims=dims)
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """This rank's shard of a train state of global tensors (e.g. a
+    snapshot read on the host, or ``train.convert.from_jax_train_state``):
+    parameters and both moments sliced by the same rules
+    (``parallel.sharding.shard_state_dict``), ready for
+    :func:`load_train_state` into a mesh state."""
+    from vilbert_multitask_tpu_torch.parallel.sharding import (
+        shard_state_dict,
+    )
+
+    return dataclasses.replace(
+        state, params=dict(shard_state_dict(state.params, mesh)),
+        mu=dict(shard_state_dict(state.mu, mesh)),
+        nu=dict(shard_state_dict(state.nu, mesh)), mesh=mesh)
 
 
 @torch.no_grad()
@@ -234,6 +306,35 @@ def batch_tensors(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _gather_rows(out, dp):
+    """Every tensor of a model output all-gathered over dp along its rows
+    (differentiable: the gradient goes back to this rank's rows)."""
+    from vilbert_multitask_tpu_torch.parallel.tp import gather_from_tp
+
+    return dataclasses.replace(out, **{
+        f.name: gather_from_tp(getattr(out, f.name), dp, 0)
+        for f in dataclasses.fields(out)
+        if isinstance(getattr(out, f.name), torch.Tensor)})
+
+
+def _sum_over(tensors: List[torch.Tensor], ax) -> None:
+    """Sum ``tensors`` over the axis in place, one all-reduce per dtype."""
+    from torch._utils import (
+        _flatten_dense_tensors,
+        _unflatten_dense_tensors,
+    )
+
+    from vilbert_multitask_tpu_torch.parallel import comm
+
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = comm.all_reduce(_flatten_dense_tensors(group), ax)
+        for t, summed in zip(group, _unflatten_dense_tensors(flat, group)):
+            t.copy_(summed)
+
+
 def make_train_step(model: nn.Module, tx: AdamW, loss_cfg: LossConfig, *,
                     autocast_dtype: Optional[torch.dtype] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState,
@@ -249,17 +350,33 @@ def make_train_step(model: nn.Module, tx: AdamW, loss_cfg: LossConfig, *,
     def step_fn(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         device = next(iter(state.params.values())).device
         b = batch_tensors(batch, device)
+        x, rows_sharded = b, False
+        if state.mesh is not None:
+            from vilbert_multitask_tpu_torch.parallel.mesh import axis
+            from vilbert_multitask_tpu_torch.parallel.sharding import (
+                place_batch,
+                shards_batch,
+            )
+
+            dp = axis(state.mesh, "dp")
+            rows_sharded = shards_batch(b["input_ids"].shape[0], dp.size)
+            x = place_batch({k: b[k] for k in (*MODEL_INPUTS, "task_ids")
+                             if k in b}, state.mesh, global_batch=True)
         with torch.autocast(device.type, dtype=autocast_dtype or
                             torch.bfloat16,
                             enabled=autocast_dtype is not None):
-            out = model(*(b[k] for k in MODEL_INPUTS), None,
-                        b.get("task_ids"))
+            out = model(*(x[k] for k in MODEL_INPUTS), None,
+                        x.get("task_ids"))
+        if rows_sharded:
+            out = _gather_rows(out, dp)
         loss, metrics = multitask_loss(loss_cfg, out, b)
         for p in state.params.values():
             p.grad = None
         loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in state.params.items()}
+        if rows_sharded:
+            _sum_over(list(grads.values()), dp)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = tx.update(state, grads)
         for p in state.params.values():
