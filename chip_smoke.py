@@ -97,13 +97,28 @@ int8. the int8 storage mode's main path at full width: seed-0 weights
    replay against eager; ``run()`` p50 (graph, eager) and ``run_many``
    rows/s of the int8 and bf16 engines in turns (bf16, int8, int8, bf16);
    how many seeded top-1 answers int8 changes; a ``rolling_swap`` of the
-   f32 checkpoint re-quantizes it to the same tensors and answers;
+   f32 checkpoint re-quantizes it to the same tensors and answers; the
+   roofline lines of the bf16 and int8 engines: at bucket 1 and 32 rows,
+   ``serving_forward_flops``, the device time of a forward (its bucket
+   graph replayed between CUDA events on the engine stream), the stream's
+   wall around ``run()`` and a 32-row ``run_many`` chunk, the achieved
+   TFLOP/s and its share of the card's peak (``mfu``), beside
+   ``serving_roofline``'s ``achievable_mfu`` and reason and ``knee_rows``
+   for this card's name (engine/flops.py);
 cli. ``python -m vilbert_multitask_tpu_torch.evals.harness --task vqa``
    on seeded data over phase 4's feature files prints the in-process
    Evaluator's scores on phase 4's engine, and ``python -m
    vilbert_multitask_tpu_torch.checkpoint.onboard`` on a seeded
    upstream-layout ``.bin`` exits 0 holding that score, each in its own
    process on the card;
+boot. the kernel-library cache (engine/aotcache.py): ``python -m
+   vilbert_multitask_tpu_torch.engine.prewarm`` for the bf16, int8 and
+   live-extract variants, one after another, into an empty directory
+   under ``vilbert_multitask_tpu_torch/_build/`` (each library's cold nvcc
+   seconds; each kernel launched once and held against its plain
+   version), then the three again at once (0 misses); two ``ServeApp``
+   boots sharing one fresh directory, the first cold, the second warm
+   (it must build nothing), each with its ``boot_phases`` and wall;
 7. served: ``ServeApp(live_extract=True)`` on the same engine
    (``http_port=0``; a full-width seeded detector): the six decode families
    and 8 VQA submits posted over HTTP one at a time (each its own forward:
@@ -187,7 +202,15 @@ parallel. the process mesh (parallel/): world 1 on NCCL in this process
    snapshot restored on a fresh launch bit-equal, its next loss within
    ``TRAIN_RESUME_RTOL``;
    NCCL across cards runs the serving runs again where there are two
-   cards or more, and is reported as not run otherwise;
+   cards or more, and is reported as not run otherwise; tp = 3 in bf16
+   on three gloo ranks (text self-attentions sharded, 12 heads / 3; the
+   visual and bridge attentions whole on each rank, 8 % 3): bundles
+   within BUNDLE_BF16 of the card's bf16 engine (answers a bf16 tie
+   reorders counted), 18 ``flash_attn`` launches a forward on each rank,
+   each rank's heads and weight MiB; ``rolling_swap`` on a tp = 2
+   ``ServeApp`` (rank 1 following) to seed-1 weights: its seconds, and
+   the bundles after it within BUNDLE_BF16 of a one-device engine on
+   those weights;
 9. a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2284,6 +2307,9 @@ def check_int8(torch, report: dict, eng, root: str, state: str):
             f"{nums['rows_per_s_32']['median']:.1f} rows/s at 32-row chunks"
             f" on {report['device']['nvidia_smi']}")
 
+    # The serving roofline of the two engines, graphs captured on both.
+    check_roofline(torch, report, {"bf16": eng, "int8": eng8})
+
     # Top-1 answers int8 changes against bf16 on the seeded set.
     res16 = eng.run_many(vqa[eng])
     res8 = eng8.run_many(vqa[eng8])
@@ -2329,6 +2355,189 @@ def check_int8(torch, report: dict, eng, root: str, state: str):
     del eng8
     torch.cuda.empty_cache()
     return launches
+
+
+# --------------------------------------------------------------- roofline
+ROOFLINE_REPLAYS = 20  # graph replays per timed window
+
+
+def roofline_numbers(torch, eng, kind: str) -> dict:
+    """One engine's serving roofline on this card: per row bucket 1 and 32,
+    the analytic FLOPs of a forward (engine/flops.py), the device time of
+    one forward (the bucket's graph replayed ROOFLINE_REPLAYS times on the
+    engine stream between CUDA events: no host work between them), the
+    stream's wall around a bucket-1 ``run()`` and a 32-row ``run_many``
+    chunk (host packing included), the achieved TFLOP/s over the device
+    time and its share of the card's peak (``mfu``), beside
+    ``serving_roofline``'s cap and reason and ``knee_rows`` for this card's
+    name and the engine's weight bytes."""
+    from vilbert_multitask_tpu_torch.engine import flops
+
+    mcfg, ecfg = eng.cfg.model, eng.cfg.engine
+    weight_bytes = engine_tensor_bytes(torch, eng)
+    peak = flops.peak_flops_for(kind)
+    req = eng.prepare_from_store(1, REQUESTS[0][1], REQUESTS[0][2])
+    chunk = [eng.prepare_from_store(1, f"what is in image {k}",
+                                    [f"img_{k % 8}"]) for k in range(32)]
+    if [len(c) for c in eng.chunk_plan([1] * 32)] != [32]:
+        raise AssertionError("the 32 requests do not pack into one chunk")
+
+    def stream_ms(fn, reps: int) -> float:
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record(eng._stream)
+            fn()
+            stop.record(eng._stream)
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times)
+
+    out = {"weight_bytes": weight_bytes,
+           "knee_rows": flops.knee_rows(mcfg, ecfg, kind, weight_bytes)}
+    for rows, call in ((1, lambda: eng.run(req)),
+                       (32, lambda: eng.run_many(chunk))):
+        graph = eng._graphs[rows]
+
+        def replays(g=graph):
+            with torch.cuda.stream(eng._stream):
+                for _ in range(ROOFLINE_REPLAYS):
+                    g.graph.replay()  # not .replay(): no launches counted
+
+        device = stream_ms(replays, 5) / ROOFLINE_REPLAYS
+        n = flops.serving_forward_flops(mcfg, ecfg, rows)
+        cap = flops.serving_roofline(mcfg, ecfg, rows, kind, weight_bytes)
+        achieved = n / (device * 1e-3)
+        out[rows] = {"flops": n, "device_ms": device,
+                     "stream_ms": stream_ms(call, 10),
+                     "tflops": achieved / 1e12,
+                     "mfu": None if peak is None else achieved / peak,
+                     "achievable_mfu": cap["achievable_mfu"],
+                     "reason": cap["reason"]}
+    return out
+
+
+def check_roofline(torch, report: dict, engines: dict) -> None:
+    """The roofline lines for each engine (``roofline_numbers``), bf16 and
+    int8, on this card."""
+    kind = report["device"]["kind"]
+    rep = report.setdefault("roofline", {})
+    for name, eng in engines.items():
+        rep[name] = r = roofline_numbers(torch, eng, kind)
+        for rows in (1, 32):
+            x = r[rows]
+            log(f"roofline {name} bucket {rows}: {x['flops'] / 1e9:.2f} "
+                f"GFLOP a forward, device {x['device_ms']:.3f} ms (the "
+                f"graph's replay), {x['stream_ms']:.3f} ms of stream wall "
+                f"around {'run()' if rows == 1 else 'a run_many chunk'}; "
+                f"{x['tflops']:.1f} TFLOP/s, mfu {x['mfu']:.4f} of the "
+                f"card's peak; serving_roofline achievable_mfu "
+                f"{x['achievable_mfu']} ({x['reason']}) on "
+                f"{report['device']['nvidia_smi']}")
+        log(f"roofline {name}: knee_rows {r['knee_rows']} at "
+            f"{r['weight_bytes'] / 2**20:.1f} MiB of weights on the card")
+
+
+# ------------------------------------------------------------------ boot
+BOOT_VARIANTS = (("bf16", ()), ("int8", ("--dtype", "int8")),
+                 ("live_extract", ("--live-extract",)))
+
+
+def run_prewarm(cache_dir: str, variants) -> dict:
+    """``python -m vilbert_multitask_tpu_torch.engine.prewarm`` for each
+    (name, args) of ``variants``, one process each, all started together;
+    each one's JSON report and wall seconds."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "vilbert_multitask_tpu_torch.engine.prewarm",
+         "--cache-dir", cache_dir, *args], env=env, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in variants}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"prewarm {name} exit {proc.returncode}: "
+                                 f"{stdout[-2000:]} {stderr[-3000:]}")
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     **json.loads(stdout)}
+    return out
+
+
+def check_boot(torch, report: dict, root: str, state: str) -> None:
+    """The kernel-library cache: the prewarm CLI for the bf16, int8 and
+    live-extract variants into an empty directory (each library's cold nvcc
+    seconds), then the same again (no miss); two ``ServeApp`` boots sharing
+    one fresh directory, the first cold, the second warm (it must build
+    nothing), each with its boot phases and wall."""
+    import shutil
+
+    from vilbert_multitask_tpu_torch import _build
+    from vilbert_multitask_tpu_torch.config import FrameworkConfig
+    from vilbert_multitask_tpu_torch.serve.app import ServeApp
+
+    rep = report["boot"] = {"prewarm": {}, "serveapp": []}
+    cache = os.path.join(_build.BUILD_DIR, f"prewarm-{os.getpid()}")
+    # Cold: one variant after another (each builds what the earlier ones
+    # left missing); warm: the three at once, every library a hit.
+    runs = [run_prewarm(cache, [v]) for v in BOOT_VARIANTS]
+    runs.append(run_prewarm(cache, BOOT_VARIANTS))
+    for rnd, outs in (("cold", {k: v for r in runs[:3] for k, v in
+                                r.items()}), ("warm", runs[3])):
+        for name, out in outs.items():
+            libs = out["libraries"]
+            rep["prewarm"][f"{name}_{rnd}"] = out
+            if rnd == "warm" and out["misses"]:
+                raise AssertionError(f"second prewarm of {name} missed: "
+                                     f"{libs}")
+            if not all(r["ok"] for r in libs.values()):
+                raise AssertionError(f"prewarm {name}: {libs}")
+            log(f"boot: prewarm {name} ({rnd}) in {out['wall_s']:.1f}s: "
+                + ", ".join(f"{n} {r['status']} nvcc {r['seconds']:.2f}s "
+                            f"(err {r['max_err']:.1e})"
+                            for n, r in libs.items())
+                + f"; {out['misses']} misses")
+    shutil.rmtree(cache)
+    cfg = FrameworkConfig()
+    boot_dir = os.path.join(_build.BUILD_DIR, f"boot-{os.getpid()}")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, aot_cache_dir=boot_dir),
+        serving=dataclasses.replace(
+            cfg.serving, queue_db_path=os.path.join(state, "boot_q.sqlite3"),
+            results_db_path=os.path.join(state, "boot_r.sqlite3"),
+            media_root=os.path.join(state, "boot_media"), http_port=0,
+            ws_port=0))
+    for rnd in ("cold", "warm"):
+        t0 = time.perf_counter()
+        app = ServeApp(cfg, feature_root=root, device="cuda")
+        try:
+            app.warm()
+            wall = time.perf_counter() - t0
+            info = {"wall_s": wall, "aot_cache": app.boot_info["aot_cache"],
+                    "boot_phases": app.boot_info["boot_phases"]}
+        finally:
+            app.stop()
+            del app
+            torch.cuda.empty_cache()
+        rep["serveapp"].append(info)
+        misses = info["aot_cache"]["misses"]
+        log(f"boot: ServeApp ({rnd}, {boot_dir}) booted and warmed in "
+            f"{wall:.1f}s; libraries {info['aot_cache']['libraries']}; "
+            f"boot_phases {info['boot_phases']}")
+        if rnd == "warm" and (misses or info["boot_phases"]["nvcc_s"]):
+            raise AssertionError(f"the warm boot built libraries: {info}")
+        if rnd == "cold" and not misses:
+            raise AssertionError(f"the cold boot found a built cache: {info}")
+    shutil.rmtree(boot_dir)
 
 
 # -------------------------------------------------------------- phase cli
@@ -4202,6 +4411,80 @@ def parallel_serve_rank(rank: int, job: dict) -> dict:
     return out
 
 
+def parallel_tp3_rank(rank: int, job: dict) -> dict:
+    """tp = 3 at full width in bf16 on one rank of a 3-rank world sharing
+    the card: the text self-attentions sharded (12 heads / 3), the visual
+    and bridge attentions whole on every rank (8 % 3). Rank 0 returns the
+    six families' bundles; every rank its launches, heads and weight
+    bytes."""
+    import torch
+
+    from vilbert_multitask_tpu_torch.checkpoint.store import restore_params
+    from vilbert_multitask_tpu_torch.config import MeshConfig
+    from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
+    from vilbert_multitask_tpu_torch.features.store import FeatureStore
+    from vilbert_multitask_tpu_torch.models.layers import BiAttention
+    from vilbert_multitask_tpu_torch.ops.attention import FusedSelfAttention
+    from vilbert_multitask_tpu_torch.parallel import (
+        build_mesh,
+        comm,
+        distributed,
+    )
+
+    dev = distributed.device()
+    cfg = _parallel_cfg(job["model"])
+    comm.reset_staged()
+    t0 = time.perf_counter()
+    mesh = build_mesh(MeshConfig(dp=1, tp=3))
+    eng = InferenceEngine(cfg, params=restore_params(
+        job["ckpt"], cfg=cfg.model, mesh=mesh),
+        feature_store=FeatureStore(job["root"]), mesh=mesh, device=dev)
+    heads = {}
+    for name, mod in eng.model.named_modules():
+        if isinstance(mod, (FusedSelfAttention, BiAttention)):
+            heads.setdefault(name.split(".")[2], set()).add(mod.num_heads)
+    weight_bytes = engine_tensor_bytes(torch, eng)
+    got, counts = _serve_session(eng, rank,
+                                 lambda: _bundles(eng, job["requests"]))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"result": got, "counts": counts,
+            "forwards": len(job["requests"]),
+            "heads": {k: sorted(v) for k, v in heads.items()},
+            "weight_mib": weight_bytes / 2**20, "staged": dict(comm.STAGED),
+            "wall_s": time.perf_counter() - t0}
+
+
+def parallel_swap_rank(rank: int, job: dict) -> dict:
+    """``ServeApp`` at tp = 2 on one rank of a 2-rank world sharing the
+    card (rank 0; rank 1 follows), booted from the old checkpoint: a
+    ``rolling_swap`` to the new one, then the six families' bundles."""
+    from vilbert_multitask_tpu_torch.parallel import distributed
+    from vilbert_multitask_tpu_torch.serve.app import ServeApp, follow_rank
+
+    dev = str(distributed.device())
+    if rank != 0:
+        follow_rank(job["cfg"], checkpoint_path=job["old"], device=dev)
+        return {}
+    t0 = time.perf_counter()
+    app = ServeApp(job["cfg"], feature_root=job["root"],
+                   checkpoint_path=job["old"], device=dev)
+    try:
+        boot_s = time.perf_counter() - t0
+        eng = app.engine.replicas[0].engine
+        app.engine.mark_ready()
+        before = _bundles(eng, job["requests"][:1])
+        t1 = time.perf_counter()
+        swap = app.rolling_swap(checkpoint_path=job["new"])
+        swap_s = time.perf_counter() - t1
+        return {"before": before, "after": _bundles(eng, job["requests"]),
+                "swap": swap, "swap_s": swap_s, "boot_s": boot_s,
+                "boot_phases": app.boot_info.get("boot_phases"),
+                "last_swap": app.boot_info.get("last_swap")}
+    finally:
+        app.stop()
+
+
 def parallel_train_rank(rank: int, job: dict) -> dict:
     """The training runs of the parallel phase on one rank of a 2-rank
     world: 3 f32 steps (dropout off) at tp = 2 and at dp = 2 against the
@@ -4412,6 +4695,7 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
     import dataclasses
     import shutil
 
+    from vilbert_multitask_tpu_torch import _build
     from vilbert_multitask_tpu_torch.checkpoint.store import (
         restore_params,
         save_params,
@@ -4507,7 +4791,8 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
     del ref_long
     ref_bf16 = InferenceEngine(bf16, params=weights, feature_store=store,
                                device=device)
-    want_bf16 = _bundles(ref_bf16, REQUESTS[:1])
+    want_bf16_all = _bundles(ref_bf16, REQUESTS)
+    want_bf16 = {REQUESTS[0][0]: want_bf16_all[REQUESTS[0][0]]}
     req = ref_bf16.prepare_from_store(*REQUESTS[0][:2], REQUESTS[0][2])
     for _ in range(3):
         ref_bf16.run(req)
@@ -4642,6 +4927,97 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
             tp_launches = {"flash_attn": per_rank[0],
                            "int8_linear": int8_per_rank[0]}
 
+    # tp = 3 at full width: three ranks on this card, the visual and
+    # bridge attentions whole on each (8 heads do not divide by 3).
+    t0 = time.perf_counter()
+    tp3 = launch.spawn_ranks(parallel_tp3_rank, 3, backend="gloo",
+                             device=device, args=(dict(
+                                 model=model, ckpt=ckpt, root=root,
+                                 requests=REQUESTS),), timeout_s=900)
+    err3, used3, _, differ3 = _same_answers(
+        tp3[0]["result"], want_bf16_all, BUNDLE_BF16, "tp=3 bf16",
+        exact_answers=False)
+    per_rank3 = [r["counts"]["flash_attn"] / r["forwards"] for r in tp3]
+    rep["tp3_bf16"] = {
+        "wall_s": time.perf_counter() - t0, "max_abs_err": err3,
+        "tol_used": used3, "answers_differ": differ3,
+        "flash_launches_per_forward_by_rank": per_rank3,
+        "heads_by_rank": [r["heads"] for r in tp3],
+        "weight_mib_by_rank": [r["weight_mib"] for r in tp3],
+        "staged": [r["staged"] for r in tp3],
+        "rank_wall_s": [r["wall_s"] for r in tp3]}
+    # an attention whose heads 3 does not divide keeps them all
+    want_heads = {stream: [h if h % 3 else h // 3] for stream, h in (
+        ("layer", model.num_attention_heads),
+        ("v_layer", model.v_num_attention_heads),
+        ("c_layer", model.bi_num_attention_heads))}
+    if any(r["heads"] != want_heads for r in tp3):
+        raise AssertionError(f"tp=3 heads per rank "
+                             f"{[r['heads'] for r in tp3]}, expected "
+                             f"{want_heads}")
+    if any(n != LAUNCHES_PER_FORWARD for n in per_rank3):
+        raise AssertionError(f"tp=3: flash_attn launches per forward per "
+                             f"rank {per_rank3}, expected "
+                             f"{LAUNCHES_PER_FORWARD}")
+    log(f"parallel: tp=3 bf16, 3 gloo ranks on one card, heads per rank "
+        f"{tp3[0]['heads']} (an attention whose heads 3 does not divide "
+        f"whole): "
+        f"bundles vs the card's bf16 engine max abs err {err3:.3e} "
+        f"({used3:.2f} of BUNDLE_BF16; answers reordered by bf16 ties in "
+        f"tasks {differ3}), flash_attn per forward per rank {per_rank3}, "
+        f"weights per rank "
+        f"{[round(r['weight_mib'], 1) for r in tp3]} MiB; "
+        f"{rep['tp3_bf16']['wall_s']:.1f}s wall")
+
+    # rolling_swap on a tp = 2 ServeApp, to seed-1 weights, against a
+    # one-device engine on them.
+    new_ckpt = os.path.join(state, "parallel_ckpt_new")
+    new_weights = init_state_dict(model, seed=1)
+    save_params(new_ckpt, new_weights)
+    ref_new = InferenceEngine(bf16, params=new_weights, feature_store=store,
+                              device=device)
+    want_new = _bundles(ref_new, REQUESTS)
+    del ref_new, new_weights
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    swap_cfg = dataclasses.replace(
+        bf16, mesh=MeshConfig(dp=1, tp=2),
+        engine=dataclasses.replace(bf16.engine,
+                                   aot_cache_dir=_build.BUILD_DIR),
+        serving=dataclasses.replace(
+            bf16.serving, queue_db_path=os.path.join(state, "swap_q.sqlite3"),
+            results_db_path=os.path.join(state, "swap_r.sqlite3"),
+            media_root=os.path.join(state, "swap_media"), http_port=0,
+            ws_port=0))
+    t0 = time.perf_counter()
+    sw = launch.spawn_ranks(parallel_swap_rank, 2, backend="gloo",
+                            device=device, args=(dict(
+                                cfg=swap_cfg, old=ckpt, new=new_ckpt,
+                                root=root, requests=REQUESTS),),
+                            timeout_s=900)[0]
+    errs, useds, _, differs = _same_answers(
+        sw["after"], want_new, BUNDLE_BF16, "tp=2 swap", exact_answers=False)
+    _same_answers(sw["before"], want_bf16, BUNDLE_BF16, "tp=2 before swap",
+                  exact_answers=False)
+    import numpy as np
+
+    first = REQUESTS[0][0]
+    if all(np.array_equal(a, b) for a, b in zip(
+            flat_bundle(sw["before"][first][0]).values(),
+            flat_bundle(sw["after"][first][0]).values())):
+        raise AssertionError("tp=2 swap: the bundle did not change")
+    rep["tp2_swap"] = {"wall_s": time.perf_counter() - t0,
+                       "swap_s": sw["swap_s"], "boot_s": sw["boot_s"],
+                       "boot_phases": sw["boot_phases"],
+                       "last_swap": sw["last_swap"], "max_abs_err": errs,
+                       "tol_used": useds, "answers_differ": differs}
+    log(f"parallel: rolling_swap on a tp=2 ServeApp (2 gloo ranks, one "
+        f"card) to seed-1 weights in {sw['swap_s']:.2f}s (boot "
+        f"{sw['boot_s']:.1f}s); bundles after it vs a one-device bf16 "
+        f"engine on the new weights max abs err {errs:.3e} ({useds:.2f} of "
+        f"BUNDLE_BF16; answers reordered by bf16 ties in tasks {differs}); "
+        f"last_swap {sw['last_swap']}")
+
     # 3. training: tp = 2 and dp = 2 against the single-device step, then a
     # snapshot resumed on a fresh launch.
     train_model = dataclasses.replace(
@@ -4767,6 +5143,9 @@ def main() -> int:
         # int8: the int8 storage mode's main path; cli: its entry points
         int8_launches = check_int8(torch, report, eng, root, state)
         check_cli_entry_points(torch, report, eng, root, state)
+        # boot: the kernel-library cache, its prewarm CLI, cold and warm
+        # server boots
+        check_boot(torch, report, root, state)
         # 7. the served path
         served_launches, served_detector = check_served(torch, report, eng,
                                                         root, state)

@@ -35,7 +35,7 @@ def _model(cfg, sd, mesh=None, ring_v=None):
     mesh), in eval mode."""
     from vilbert_multitask_tpu_torch.models.vilbert import ViLBertForVLTasks
     from vilbert_multitask_tpu_torch.parallel.sharding import shard_state_dict
-    from vilbert_multitask_tpu_torch.parallel.tp import parallelize
+    from vilbert_multitask_tpu_torch.parallel.tp import layout, parallelize
 
     with torch.device("meta"):
         model = ViLBertForVLTasks(cfg, ring_v=ring_v)
@@ -46,7 +46,7 @@ def _model(cfg, sd, mesh=None, ring_v=None):
     weights = {k: torch.as_tensor(np.asarray(v)).float()
                for k, v in sd.items()}
     if mesh is not None:
-        weights = shard_state_dict(weights, mesh)
+        weights = shard_state_dict(weights, mesh, layout(model))
     model.load_state_dict(weights, strict=True)
     return model.eval()
 
@@ -331,9 +331,17 @@ def result_key(r):
     return r.kind
 
 
-def serve_engine(cfg, mesh, sd, *, seed_regions=5):
+def attention_maps(out) -> list:
+    """A forward's bridge attention maps (``collect_attention=True``) as
+    numpy arrays, bridge by bridge."""
+    return [[None if p is None else p.float().numpy() for p in maps]
+            for maps in out.attn_data_list]
+
+
+def serve_engine(cfg, mesh, sd, *, seed_regions=5, maps=False):
     """Run the engine tests' requests on rank 0 of a mesh engine (the
-    other ranks follow); returns rank 0's results."""
+    other ranks follow); returns rank 0's results (with ``maps``, also the
+    bridges' attention maps of the first request)."""
     from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
     from vilbert_multitask_tpu_torch.parallel.mesh import world_axis
 
@@ -348,7 +356,12 @@ def serve_engine(cfg, mesh, sd, *, seed_regions=5):
                                        regs[:2]))
         many = eng.run_many([eng.prepare(t, q, regs[:n])
                              for t, q, n in BACKLOG])
-        return {"binary": out.vil_binary_prediction.numpy(),
+        extra = {}
+        if maps:
+            got, _ = eng.run(eng.prepare(12, "both images contain wolves",
+                                         regs[:2]), collect_attention=True)
+            extra["maps"] = attention_maps(got)
+        return {**extra, "binary": out.vil_binary_prediction.numpy(),
                 "vision_logit": out.vision_logit.numpy(),
                 "answers": result_key(res),
                 "many": [(r.kind, result_key(r)) for r in many],
@@ -379,6 +392,102 @@ def engine_rank(rank: int, cfg, sd: dict, int8_cfg, ring_case: dict,
                                seed_regions=ring_case["seed"])
     out["ring_calls"] = ring_self_attention.calls
     return out
+
+
+def _leaf_shapes(sd) -> dict:
+    return {k: tuple(np.shape(v["int8"] if isinstance(v, dict) else v))
+            for k, v in sd.items()}
+
+
+def uneven_heads_rank(rank: int, cfg, sd: dict, int8_cfg, ring_case: dict,
+                      ckpt_dir: str) -> dict:
+    """8 ranks: the tiny config at dp 2 × tp 4, whose 2 visual and 2
+    bridge heads tp does not divide (those attentions stay whole on every
+    rank), in f32, int8 and restored from a checkpoint with
+    ``restore_params(..., mesh=)``; then tp 4 × sp 2 over a long region
+    set, the ring inside a whole visual attention."""
+    from vilbert_multitask_tpu_torch.checkpoint.store import restore_params
+    from vilbert_multitask_tpu_torch.parallel.ring import ring_self_attention
+
+    out = {}
+    mesh = _mesh(dp=2, tp=4)
+    out["f32"] = serve_engine(cfg, mesh, sd, maps=True)
+    out["int8"] = serve_engine(int8_cfg, mesh, sd)
+    restored = restore_params(ckpt_dir, dtype=cfg.engine.param_dtype,
+                              cfg=cfg.model, mesh=mesh)
+    out["restored_shapes"] = _leaf_shapes(restored)
+    out["restored"] = serve_engine(cfg, mesh, restored)
+    ring_self_attention.calls = 0
+    out["ring"] = serve_engine(ring_case["cfg"], _mesh(dp=1, tp=4, sp=2), sd,
+                               seed_regions=ring_case["seed"])
+    out["ring_calls"] = ring_self_attention.calls
+    return out
+
+
+REFUSED_QUESTION = "is it raining"
+
+
+def swap_rank(rank: int, cfg, feature_root: str, old_ckpt: str,
+              new_ckpt: str) -> dict:
+    """2 ranks at tp 2: ``ServeApp`` (rank 0) booted from ``old_ckpt``
+    answers a job; a ``rolling_swap`` to ``new_ckpt`` that rank 1's
+    restore fails (an ``engine.load`` fault planned on rank 1 alone) is
+    refused and the same job answers as before; a second swap succeeds
+    while another job is claimed, and the job after it answers on the new
+    weights."""
+    import threading
+
+    from vilbert_multitask_tpu_torch.resilience.faults import (
+        FaultPlan,
+        FaultRule,
+        install_plan,
+    )
+    from vilbert_multitask_tpu_torch.serve.app import ServeApp, follow_rank
+    from vilbert_multitask_tpu_torch.serve.queue import make_job_message
+
+    if rank != 0:
+        install_plan(FaultPlan(rules=[FaultRule("engine.load",
+                                                max_injections=1)]))
+        follow_rank(cfg, checkpoint_path=old_ckpt, device="cpu")
+        return {}
+    app = ServeApp(cfg, feature_root=feature_root, checkpoint_path=old_ckpt,
+                   device="cpu")
+    jobs = iter(range(100))
+
+    def answer(question="what is the man holding") -> dict:
+        app.queue.publish(make_job_message(
+            ["img_a.jpg"], question, 1, f"sock{next(jobs)}"))
+        assert app.worker.step() == "acked"
+        return app.store.recent()[0]["answer_text"]
+
+    try:
+        app.engine.mark_ready()
+        info = {"before": answer()}
+        try:
+            app.rolling_swap(checkpoint_path=new_ckpt)
+            info["refused"] = None
+        except RuntimeError as e:
+            info["refused"] = str(e)
+        # another question: the same one would be the result cache's hit
+        info["after_refused"] = answer(REFUSED_QUESTION)
+        info["gen_after_refused"] = app.model_gen
+        box: dict = {}
+        swap = threading.Thread(target=lambda: box.update(
+            report=app.rolling_swap(checkpoint_path=new_ckpt)))
+        swap.start()
+        info["during"] = answer("what is on the table")
+        swap.join()
+        info["report"] = box["report"]
+        info["after"] = answer()
+        info["last_swap"] = app.boot_info.get("last_swap")
+        info["answered"] = len(app.store.recent(limit=100))
+        try:
+            app.rolling_swap(params={})
+        except ValueError as e:
+            info["in_memory"] = str(e)
+        return info
+    finally:
+        app.stop()
 
 
 def idle_rank(rank: int, cfg, sd: dict, idle_s: float) -> dict:

@@ -96,7 +96,10 @@ def restore_params(path: str, *, dtype=None,
     an int8 engine restores unchanged: quantizing is idempotent. With a
     ``mesh``, this rank's shard of the cast tree (a
     ``parallel.sharding.ShardedStateDict``, which a mesh engine's
-    ``load_params`` takes as it is)."""
+    ``load_params`` takes as it is), sliced as ``cfg``'s model is laid out
+    on that mesh (``parallel.tp.layout_for``: an attention whose heads tp
+    does not divide stays whole); without ``cfg``, by the per-leaf
+    rules."""
     if os.path.isdir(path):
         sd = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu",
                         weights_only=True)
@@ -110,8 +113,10 @@ def restore_params(path: str, *, dtype=None,
     if mesh is None:
         return sd
     from vilbert_multitask_tpu_torch.parallel.sharding import shard_state_dict
+    from vilbert_multitask_tpu_torch.parallel.tp import layout_for
 
-    return shard_state_dict(sd, mesh)
+    return shard_state_dict(
+        sd, mesh, None if cfg is None else layout_for(cfg, mesh))
 
 
 class AsyncRestore:
@@ -256,7 +261,8 @@ def restore_train_state(path: str, template: Any) -> Any:
     if template.mesh is not None:
         from vilbert_multitask_tpu_torch.parallel.mesh import axis
 
-        source = shard_train_state(source, template.mesh)
+        source = shard_train_state(source, template.mesh,
+                                   template.shard_dims)
         dp = axis(template.mesh, "dp")
         gens = raw.get("dp_generators")
         if gens is not None and gens.shape[0] == dp.size:

@@ -228,8 +228,7 @@ SNLI_VE_LABELS = ("contradiction (false)", "neutral", "entailment (true)")  # wo
 class EngineConfig:
     """The inference-engine fields the port reads (a subset of the JAX
     package's EngineConfig, same names and defaults). Left out: the knobs
-    only JAX reads (the XLA compilation and AOT caches and
-    ``parallel_warmup``)."""
+    only JAX reads (the XLA compilation cache and ``parallel_warmup``)."""
 
     max_text_len: int = 37  # wordpiece tokens incl. [CLS]/[SEP] (worker.py:408)
     max_regions: int = 101  # 100 detector boxes + 1 global feature (worker.py:71,433)
@@ -276,6 +275,11 @@ class EngineConfig:
     # (prepare(cache_keys=...), set by prepare_from_store). 64 entries ≈
     # 26 MB of bf16 features.
     device_input_cache_entries: int = 64
+    # Where the kernel libraries are built and looked up (engine/
+    # aotcache.py; a prewarm step fills it ahead of a boot). None: the
+    # package's _build/ for an engine; next to the checkpoint, else under
+    # serve_state/, for a server (the JAX app's rule).
+    aot_cache_dir: str | None = None
 
     def bucket_for(self, n_images: int) -> int:
         for b in self.image_buckets:

@@ -79,7 +79,11 @@ numpy), :meth:`~InferenceEngine.predict` and :meth:`~InferenceEngine.warmup`.
   follow` until rank 0 calls :meth:`~InferenceEngine.stop_followers`;
   they wait for each dispatch's header on a host group of its own
   (``parallel.mesh.idle_axis``), so a server idle for longer than the
-  collectives' timeout keeps its followers. There is no row slab and
+  collectives' timeout keeps its followers. An attention whose heads tp
+  does not divide runs whole on every rank (``parallel.tp.parallelize``).
+  :meth:`~InferenceEngine.load_checkpoint` swaps the weights on every
+  rank: rank 0 broadcasts a load, each rank restores its own shard, and
+  none copies until all have restored. There is no row slab and
   there are no CUDA graphs on a mesh (the JAX mesh path has no row cache
   either); forwards run eagerly.
 """
@@ -88,7 +92,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -134,7 +140,7 @@ from vilbert_multitask_tpu_torch.parallel import sharding as shd
 from vilbert_multitask_tpu_torch.parallel.mesh import axis as mesh_axis
 from vilbert_multitask_tpu_torch.parallel.mesh import idle_axis, world_axis
 from vilbert_multitask_tpu_torch.parallel.ring import RingContext
-from vilbert_multitask_tpu_torch.parallel.tp import parallelize
+from vilbert_multitask_tpu_torch.parallel.tp import layout, parallelize
 from vilbert_multitask_tpu_torch.resilience import (
     CircuitBreaker,
     DeadlineExceeded,
@@ -384,7 +390,8 @@ class InferenceEngine:
              for t in range(n_tasks)], dtype=torch.long, device=self.device)
         self.stage_times: Dict[str, float] = {}
         # Boot-phase split for /healthz: upload_s (weights), compile_s
-        # (graph capture at warmup).
+        # (graph capture at warmup, also booked as capture_s; the server
+        # adds restore_s, cache_load_s and nvcc's share of compile_s).
         self.boot_times: Dict[str, float] = {}
         self._boot_lock = threading.Lock()
         # Every slab write, forward and bundle copy goes on this stream
@@ -431,6 +438,9 @@ class InferenceEngine:
                 quantize_modules(self.model, self.compute_dtype)
             if mesh is not None:
                 parallelize(self.model, mesh)
+        # Where each leaf of the served state dict is sharded on this
+        # mesh (an attention whose heads tp does not divide stays whole).
+        self._layout = layout(self.model) if mesh is not None else None
         self.model.to_empty(device=self.device)
         if not self.param_quantized:
             for mod in self.model.modules():
@@ -483,6 +493,17 @@ class InferenceEngine:
         rank keeps its shard; a ``ShardedStateDict`` (``checkpoint.
         restore_params(..., mesh=)``) is this rank's already, and the
         served heads' leaves are gathered over tp for the slabs."""
+        sd, heads = self._local_state(params)
+        if heads is None:
+            heads = self._gathered_heads(sd)
+        with self._dispatch_lock:
+            self._copy_state(sd, heads)
+
+    def _local_state(self, params: Dict) -> Tuple[Dict, Optional[Dict]]:
+        """:meth:`load_params`' work on this rank alone: the state dict to
+        copy (quantized on an int8 engine; this rank's shard on a mesh) and
+        the served heads' global leaves, or None where a sharded dict's
+        heads must be gathered over tp (:meth:`_gathered_heads`)."""
         sharded = isinstance(params, shd.ShardedStateDict)
         sd = {k: quant.leaf_to(v) for k, v in params.items()}
         if self.param_quantized:
@@ -497,16 +518,44 @@ class InferenceEngine:
         elif quant.tree_is_quantized(sd):
             raise ValueError("a quantized (int8) state dict needs "
                              "EngineConfig.param_dtype='int8'")
-        heads = sd
+        heads: Optional[Dict] = sd
         if self.mesh is not None:
             if sharded:
-                heads = shd.gather_state_dict(
-                    {k: quant.leaf_to(v, self.device) for k, v in sd.items()
-                     if k.startswith(SERVED_HEADS)},
-                    self.mesh, self._global_shapes())
+                heads = None
             else:
-                sd = shd.shard_state_dict(sd, self.mesh)
-        with self._dispatch_lock, torch.no_grad(), self._stream_ctx():
+                sd = shd.shard_state_dict(sd, self.mesh, self._layout)
+        return sd, heads
+
+    def _gathered_heads(self, sd: Dict) -> Dict:
+        """The served heads' leaves of this rank's shards, gathered over tp
+        (a collective: every rank of the tp axis calls it)."""
+        return shd.gather_state_dict(
+            {k: quant.leaf_to(v, self.device) for k, v in sd.items()
+             if k.startswith(SERVED_HEADS)},
+            self.mesh, self._global_shapes(), self._layout)
+
+    def _check_state(self, sd: Dict) -> None:
+        """Refuse, before anything is copied, a state dict whose keys or
+        shapes are not the model's: ``load_state_dict`` copies the leaves
+        that fit and raises after, which would leave a mix of weights."""
+        want = self.model.state_dict()
+
+        def shape(v):
+            return tuple((v[quant.QVALUES] if quant.is_quantized_leaf(v)
+                          else v).shape)
+
+        if set(sd) != set(want):
+            raise ValueError(f"state dict keys differ from the model's: "
+                             f"missing {sorted(set(want) - set(sd))[:5]}, "
+                             f"unexpected {sorted(set(sd) - set(want))[:5]}")
+        bad = [k for k in want if shape(sd[k]) != shape(want[k])]
+        if bad:
+            raise ValueError(f"shapes differ from the model's at {bad[:5]}")
+
+    def _copy_state(self, sd: Dict, heads: Dict) -> None:
+        """Copy ``sd`` into the model's tensors and rebuild the head slabs
+        in place (the caller holds ``_dispatch_lock``)."""
+        with torch.no_grad(), self._stream_ctx():
             self.model.load_state_dict(sd, strict=True)
             slabs = None
             if self.cfg.engine.fused_task_heads:
@@ -524,6 +573,91 @@ class InferenceEngine:
                     t.copy_(slabs[name])
             if self._stream is not None:
                 self._stream.synchronize()
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore the checkpoint at ``path`` (``checkpoint.restore_params``,
+        cast to ``EngineConfig.param_dtype``) and load it.
+
+        On a mesh rank 0 calls it, and every rank restores and loads its
+        own shard: rank 0 broadcasts a load (the path and the storage
+        dtype) on the idle group, each rank restores its shard and checks
+        it against its model, and the ranks agree before any of them
+        copies. A restore that fails on any rank raises here with that
+        rank's error, and every rank keeps the weights it had. After the
+        copies the ranks agree again, so the next forward runs on the new
+        weights everywhere. A follower holds no tree rank 0 could send, so
+        an in-memory tree cannot be swapped onto a mesh."""
+        from vilbert_multitask_tpu_torch.checkpoint.store import (
+            restore_params,
+        )
+
+        if self.mesh is None:
+            fault_point("engine.load")
+            self.load_params(restore_params(
+                path, dtype=self.cfg.engine.param_dtype,
+                cfg=self.model_config))
+            return
+        if world_axis(self.mesh).index != 0:
+            raise RuntimeError("on a mesh only rank 0 starts a load; the "
+                               "other ranks run follow()")
+        request = json.dumps({"path": os.path.abspath(path),
+                              "dtype": self.cfg.engine.param_dtype}).encode()
+        header = torch.tensor([self._OP_LOAD, len(request), 0, 0])
+        with self._dispatch_lock, torch.inference_mode(), \
+                self._stream_ctx():
+            self._mesh_exchange(header, request)
+
+    def _mesh_load(self, request: Optional[bytes], n: int) -> tuple:
+        """A load on every rank of a mesh (:meth:`load_checkpoint`; rank 0
+        passes the request, the others receive its ``n`` bytes). Returns
+        an empty tuple on a follower (which keeps following, on its old
+        weights if the load failed); raises on rank 0 if any rank failed."""
+        from vilbert_multitask_tpu_torch.checkpoint.store import (
+            restore_params,
+        )
+
+        buf = (torch.frombuffer(bytearray(request), dtype=torch.uint8)
+               if request is not None else torch.empty(n, dtype=torch.uint8))
+        job = json.loads(bytes(comm.broadcast(buf, self._idle).tolist()))
+        error = None
+        try:
+            fault_point("engine.load")
+            sd, heads = self._local_state(restore_params(
+                job["path"], dtype=job["dtype"], cfg=self.model_config,
+                mesh=self.mesh))
+            self._check_state(sd)
+        except Exception as e:  # noqa: BLE001 — every rank reports
+            error = e
+        failed = self._agree(error)
+        if failed is None:
+            try:
+                if heads is None:
+                    heads = self._gathered_heads(sd)
+                self._copy_state(sd, heads)
+            except Exception as e:  # noqa: BLE001 — every rank reports
+                error = e
+            failed = self._agree(error)
+            if failed is not None:
+                failed = ("the copies failed after every rank restored; the "
+                          "ranks may hold different weights: " + failed)
+        else:
+            failed = "every rank keeps its weights: " + failed
+        if failed is not None and world_axis(self.mesh).index == 0:
+            raise RuntimeError(f"load of {job['path']} on the mesh "
+                               f"failed; {failed}")
+        return ()
+
+    def _agree(self, error: Optional[BaseException]) -> Optional[str]:
+        """Every rank's error of a mesh load, gathered on the idle group
+        (no collective timeout: a restore may take long on one rank):
+        None when every rank succeeded, else the failed ranks' errors."""
+        errors: List[Optional[str]] = [None] * world_axis(self.mesh).size
+        mine = None if error is None else f"{type(error).__name__}: {error}"
+        torch.distributed.all_gather_object(errors, mine,
+                                            group=self._idle.group)
+        failed = [f"rank {r}: {e}" for r, e in enumerate(errors)
+                  if e is not None]
+        return "; ".join(failed) if failed else None
 
     def _replicated_head_slabs(self, sd: Dict) -> Dict[str, torch.Tensor]:
         """The floating head slabs of a mesh engine, from the global
@@ -990,8 +1124,10 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- the mesh
     # A dispatch's header, broadcast from rank 0 on the host over the idle
-    # group: [op, bucket, collect, keep_out]. _OP_STOP ends follow().
-    _OP_STOP, _OP_FORWARD = 0, 1
+    # group: [op, bucket, collect, keep_out]. _OP_STOP ends follow();
+    # _OP_LOAD swaps the weights (its bucket field is the byte count of the
+    # load's request, broadcast next).
+    _OP_STOP, _OP_FORWARD, _OP_LOAD = 0, 1, 2
 
     def _mesh_rows(self, rows: Sequence[tuple], bucket: int):
         """A dispatch's image inputs as dense host tensors (bucket, Nv, ·):
@@ -1011,12 +1147,13 @@ class InferenceEngine:
         return feats, spat, mask
 
     def _mesh_exchange(self, header: Optional[torch.Tensor] = None,
-                       payload: Optional[tuple] = None):
+                       payload=None):
         """One mesh dispatch, on every rank (rank 0 passes the header and
         the host payload; the others receive them): broadcast, this
         rank's dp rows, the forward, and the bundle's rows (and, when
         kept, the output) gathered over dp. Returns (out, host bundle,
-        spec), or None at a stop message."""
+        spec), an empty tuple after a load (:meth:`_mesh_load`, whose
+        request is the payload), or None at a stop message."""
         world = world_axis(self.mesh)
         head = header if header is not None else torch.zeros(
             4, dtype=torch.long)
@@ -1024,6 +1161,8 @@ class InferenceEngine:
             head, self._idle).tolist()
         if op == self._OP_STOP:
             return None
+        if op == self._OP_LOAD:
+            return self._mesh_load(payload, bucket)
         ecfg, nt = self.cfg.engine, self.cfg.engine.max_text_len
         nv, dim = ecfg.max_regions, self.cfg.model.v_feature_size
         shapes = (((bucket, 3 * nt + 2), torch.long),
@@ -1063,8 +1202,10 @@ class InferenceEngine:
         fields = {f.name: rows(getattr(out, f.name))
                   for f in dataclasses.fields(out)
                   if isinstance(getattr(out, f.name), torch.Tensor)}
+        heads = self.model_config.bi_num_attention_heads
         fields["attn_data_list"] = [
-            tuple(rows(comm.all_gather(p, tp, 1)) if p is not None else None
+            tuple(None if p is None else rows(
+                p if p.shape[1] == heads else comm.all_gather(p, tp, 1))
                   for p in maps) for maps in out.attn_data_list]
         return dataclasses.replace(out, **fields)
 
@@ -1318,7 +1459,9 @@ class InferenceEngine:
                 self._graphs[b] = graphs.capture(
                     b, self._rows_step, pack, stream=self._stream,
                     pool=self._graph_pool)
-            self.book_boot_time("compile_s", time.perf_counter() - t0)
+            seconds = time.perf_counter() - t0
+            self.book_boot_time("compile_s", seconds)
+            self.book_boot_time("capture_s", seconds)
 
     # ---------------------------------------------------------------- decode
     def decode(self, req: PreparedRequest, bundle: dict, row: int = 0

@@ -24,7 +24,17 @@ torch weights are ``(out, in)``, so output features are dim 0):
   reach either (their Flax names are ``v_ffn`` / ``t_ffn``);
 - a leaf whose sharded dimension does not divide by tp is replicated
   (``_spec_fits``): the full vocabulary, 30522, divides by tp = 2 and not
-  by 4.
+  by 4;
+- an attention whose heads tp does not divide is replicated whole, with
+  the products that read its context. The JAX rules shard such a leaf
+  when its columns divide and XLA re-lays the heads out; the port decides
+  per attention module (``parallel.tp.parallelize``), which a key and a
+  shape cannot tell. So :func:`shard_dim` is the per-leaf rule that
+  ``parallelize`` starts from, and the functions that slice, gather or
+  describe a state dict take the model's own answer, ``dims``
+  (``parallel.tp.layout`` of the parallelized model, or ``layout_for`` of
+  its config); without it they apply the per-leaf rule, which is the
+  model's wherever tp divides every head count.
 
 A spec is a tuple of axis names per dimension, as a JAX ``PartitionSpec``
 reads: ``("tp", None)`` for a column shard of a weight, ``(None, "tp")``
@@ -104,14 +114,25 @@ def _spec(ndim: int, dim: Optional[int]) -> tuple:
     return tuple("tp" if d == dim else None for d in range(ndim))
 
 
-def param_specs(params: Mapping[str, Any], mesh) -> Dict[str, Any]:
+def _dim_of(key: str, shape, tp: int,
+            dims: Optional[Mapping[str, int]]) -> Optional[int]:
+    """The dim ``key`` is sharded on: the model's answer when given, else
+    the per-leaf rule."""
+    if dims is None:
+        return shard_dim(key, shape, tp)
+    return dims.get(key) if tp > 1 else None
+
+
+def param_specs(params: Mapping[str, Any], mesh,
+                dims: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
     """The spec of every leaf of a global state dict (a pair gets a
-    ``{"int8": spec, "scale": spec}``)."""
+    ``{"int8": spec, "scale": spec}``); ``dims`` as the module docstring
+    says."""
     tp = mesh_axis(mesh, "tp").size
     out: Dict[str, Any] = {}
     for key, value in params.items():
         shape = _shape(value)
-        dim = shard_dim(key, shape, tp)
+        dim = _dim_of(key, shape, tp, dims)
         if quant.is_quantized_leaf(value):
             out[key] = {quant.QVALUES: _spec(len(shape), dim),
                         quant.QSCALE: _spec(1, 0) if _scale_sharded(
@@ -132,18 +153,20 @@ def _slice(t, dim: int, ax) -> torch.Tensor:
     return t.narrow(dim, ax.index * n, n).contiguous().clone()
 
 
-def shard_state_dict(params: Mapping[str, Any], mesh) -> ShardedStateDict:
+def shard_state_dict(params: Mapping[str, Any], mesh,
+                     dims: Optional[Mapping[str, int]] = None
+                     ) -> ShardedStateDict:
     """This rank's shard of a global state dict (arrays, tensors or int8
-    pairs; on the host or a device): each tp-sharded leaf sliced to its
-    tp index, the rest as they are. A dict that is already sharded passes
-    through."""
+    pairs; on the host or a device): each tp-sharded leaf (``dims``, as
+    the module docstring says) sliced to its tp index, the rest as they
+    are. A dict that is already sharded passes through."""
     if isinstance(params, ShardedStateDict):
         return params
     ax = mesh_axis(mesh, "tp")
     out = ShardedStateDict()
     for key, value in params.items():
         shape = _shape(value)
-        dim = shard_dim(key, shape, ax.size)
+        dim = _dim_of(key, shape, ax.size, dims)
         if dim is None:
             out[key] = value
         elif quant.is_quantized_leaf(value):
@@ -159,7 +182,8 @@ def shard_state_dict(params: Mapping[str, Any], mesh) -> ShardedStateDict:
 
 
 def gather_state_dict(params: Mapping[str, Any], mesh,
-                      global_shapes: Mapping[str, tuple]
+                      global_shapes: Mapping[str, tuple],
+                      dims: Optional[Mapping[str, int]] = None
                       ) -> Dict[str, Any]:
     """The inverse of :func:`shard_state_dict` (for checkpoints): every
     sharded leaf all-gathered over tp, given each key's global shape.
@@ -169,7 +193,7 @@ def gather_state_dict(params: Mapping[str, Any], mesh,
     for key in sorted(params):
         value = params[key]
         shape = tuple(global_shapes[key])
-        dim = shard_dim(key, shape, ax.size)
+        dim = _dim_of(key, shape, ax.size, dims)
         if dim is None:
             out[key] = value
         elif quant.is_quantized_leaf(value):

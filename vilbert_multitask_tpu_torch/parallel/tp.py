@@ -30,12 +30,17 @@ dict keys with this rank's shard of the tensors:
   shard slices rows and keeps the per-column scales.
 
 :func:`parallelize` swaps a model's modules for these by the rules, on the
-meta device, before the model gets storage.
+meta device, before the model gets storage. An attention whose heads tp
+does not divide stays whole on every rank, with the products that read its
+context (XLA re-lays such shards out; here the rank computes every head).
+:func:`layout` reports, for a parallelized model, the dim each state-dict
+leaf is sharded on: the one answer ``parallel/sharding.py`` slices and
+gathers by.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -270,14 +275,42 @@ def _weight_shape(module: nn.Module) -> Optional[tuple]:
     return None
 
 
+def _whole_attentions(model: nn.Module, tp: int) -> set:
+    """Ids of the modules kept whole on every rank: each attention whose
+    ``num_heads`` tp does not divide, with the products that read its
+    context (a self-attention's ``output``; both streams' ``biOutput`` of a
+    bridge). Decided per attention, not per weight: a projection's columns
+    often divide where its heads do not (the tiny visual q/k/v's 32
+    columns over tp = 4, 2 heads; the full width's 8 visual and bridge
+    heads at tp = 3)."""
+    from vilbert_multitask_tpu_torch.models.layers import (
+        ConnectionLayer,
+        SelfAttentionBlock,
+    )
+
+    whole = set()
+    for mod in model.modules():
+        if isinstance(mod, SelfAttentionBlock):
+            parts = (mod,) if mod.self.num_heads % tp else ()
+        elif isinstance(mod, ConnectionLayer):
+            parts = ((mod.biattention, mod.biOutput)
+                     if mod.biattention.num_heads % tp else ())
+        else:
+            continue
+        whole.update(id(m) for part in parts for m in part.modules())
+    return whole
+
+
 def parallelize(model: nn.Module, mesh) -> nn.Module:
     """Swap, in place, every Linear / Embedding (or its int8 form) whose
     weight the rules shard over tp (parallel/sharding.py:
-    :func:`..sharding.shard_dim`) for its tp form, and give each
-    attention the count of heads its shard holds. Call it on the meta
-    device, after ``models.int8.quantize_modules`` for an int8 model and
-    before ``to_empty``; the tied masked-LM decoder follows the word
-    table. Returns ``model``."""
+    :func:`..sharding.shard_dim`) for its tp form, and give each sharded
+    attention the count of heads its shard holds. An attention whose heads
+    tp does not divide stays whole, with its output products
+    (:func:`_whole_attentions`). Call it on the meta device, after
+    ``models.int8.quantize_modules`` for an int8 model and before
+    ``to_empty``; the tied masked-LM decoder follows the word table.
+    Returns ``model``."""
     from vilbert_multitask_tpu_torch.models.heads import (
         SimpleClassifier,
         TextPredictionHead,
@@ -292,11 +325,13 @@ def parallelize(model: nn.Module, mesh) -> nn.Module:
     if tp.size == 1:
         return model
     names = {id(m): n for n, m in model.named_modules()}
+    whole = _whole_attentions(model, tp.size)
     swapped = {}  # id of the old module -> (the old module, its tp form)
     for parent in list(model.modules()):
         for child_name, child in list(parent.named_children()):
             shape = _weight_shape(child)
-            if shape is None or isinstance(child, TiedTableDecoder):
+            if (shape is None or id(child) in whole
+                    or isinstance(child, TiedTableDecoder)):
                 continue
             key = f"{names[id(child)]}.weight"
             if key == "cls.predictions.decoder.weight":
@@ -336,29 +371,48 @@ def parallelize(model: nn.Module, mesh) -> nn.Module:
                      else mod.query1)
             if isinstance(query, (ColumnParallelLinear,
                                   QuantColumnParallelLinear)):
-                if mod.num_heads % tp.size:
-                    raise ValueError(
-                        f"tp={tp.size} shards {names[id(mod)]}'s "
-                        f"projections but does not divide its "
-                        f"{mod.num_heads} heads")
                 mod.num_heads //= tp.size
     return model
 
 
-def shard_dims(model: nn.Module) -> dict:
-    """Parameter name → the dim its tp layer shards (column and vocabulary
-    layers: dim 0 of the weight and the bias; row layers: dim 1 of the
-    weight, the bias whole), for every parameter of ``model`` that is a
-    tp shard."""
-    out = {}
+def layout(model: nn.Module) -> Dict[str, int]:
+    """State-dict key → the dim its tp layer shards, for every leaf of
+    ``model.state_dict()`` that is a tp shard: column and vocabulary
+    layers (their int8 forms and the tied decoder included) dim 0 of the
+    weight and the bias; row layers dim 1 of the weight, the bias whole.
+    Every other leaf, a whole attention's among them, is replicated. Empty
+    off a mesh."""
+    from vilbert_multitask_tpu_torch.models.int8 import TiedTableDecoder
+
+    out: Dict[str, int] = {}
     for name, mod in model.named_modules():
         pre = f"{name}." if name else ""
-        if isinstance(mod, (ColumnParallelLinear, VocabParallelEmbedding)):
+        if isinstance(mod, TiedTableDecoder):
+            mod = mod._table[0]
+        if isinstance(mod, (ColumnParallelLinear, VocabParallelEmbedding,
+                            QuantColumnParallelLinear,
+                            QuantVocabParallelEmbedding)):
             out[pre + "weight"] = 0
             if getattr(mod, "bias", None) is not None:
                 out[pre + "bias"] = 0
-        elif isinstance(mod, RowParallelLinear):
+        elif isinstance(mod, (RowParallelLinear, QuantRowParallelLinear)):
             out[pre + "weight"] = 1
-    params = dict(model.named_parameters())
-    return {k: d for k, d in out.items() if k in params}
+    return out
 
+
+def layout_for(cfg, mesh) -> Dict[str, int]:
+    """:func:`layout` of a ``ViLBertConfig``'s model on ``mesh`` (built and
+    parallelized on the meta device): how a state dict of that model
+    shards when no model is at hand (``checkpoint.restore_params(...,
+    mesh=)``)."""
+    from vilbert_multitask_tpu_torch.models.vilbert import ViLBertForVLTasks
+
+    with torch.device("meta"):
+        return layout(parallelize(ViLBertForVLTasks(cfg), mesh))
+
+
+def shard_dims(model: nn.Module) -> dict:
+    """Parameter name → the dim its tp layer shards (:func:`layout`
+    restricted to ``model``'s parameters)."""
+    params = dict(model.named_parameters())
+    return {k: d for k, d in layout(model).items() if k in params}

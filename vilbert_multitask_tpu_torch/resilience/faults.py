@@ -17,7 +17,8 @@ can stay on hot paths.
 
 Fault-site inventory (see ARCHITECTURE.md for the table):
 ``queue.publish``, ``queue.claim``, ``worker.intake``, ``remote.post``,
-``push.publish``, ``engine.dispatch``.
+``push.publish``, ``engine.dispatch``, ``engine.load`` (a checkpoint
+load, on each rank of a mesh).
 """
 
 from __future__ import annotations

@@ -18,8 +18,12 @@ of this package (checkpoint/store.py) or the reference's
 ``pytorch_model_*.bin``, cast on the host to ``EngineConfig.param_dtype``
 (``"int8"`` quantizes it), and ``--detector-checkpoint`` reads a maskrcnn
 detector ``.pth`` (torch files: the JAX package's Orbax directories are not
-read here). What the JAX app does that this one does not: the XLA/AOT
-compile caches (no counterpart on this backend).
+read here). Where the JAX app keeps its AOT executable cache, this one
+keeps the kernel libraries nvcc builds (``EngineConfig.aot_cache_dir``,
+engine/aotcache.py: next to ``--checkpoint``, else under
+``serve_state/``): they build while the checkpoint restores, and a
+prewarmed directory boots with no nvcc run. The XLA compilation cache has
+no counterpart on this backend.
 
 On a process mesh (the ranks started by ``parallel/launch.py``, ``--mesh
 dp,tp[,sp]``; NCCL takes one card per rank), the mesh is built before the
@@ -43,6 +47,7 @@ from vilbert_multitask_tpu_torch.config import (
     FrameworkConfig,
     config_fingerprint,
 )
+from vilbert_multitask_tpu_torch.engine.aotcache import default_cache_dir
 from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
 from vilbert_multitask_tpu_torch.features.store import FeatureStore
 from vilbert_multitask_tpu_torch.serve.autoscale import Autoscaler
@@ -76,6 +81,16 @@ class ServeApp:
                  engine_factory: Optional[Callable[[], Any]] = None,
                  device: str = "cuda"):
         self.cfg = cfg or FrameworkConfig()
+        # The kernel-library cache (engine/aotcache.py), as the JAX app
+        # places its AOT cache: next to the checkpoint, where a prewarm
+        # step fills it and every replica host mounts it, else under
+        # serve_state/ with the other durable files. An explicit
+        # EngineConfig value wins.
+        if self.cfg.engine.aot_cache_dir is None:
+            self.cfg = dataclasses.replace(
+                self.cfg, engine=dataclasses.replace(
+                    self.cfg.engine, aot_cache_dir=default_cache_dir(
+                        self.cfg, checkpoint_path)))
         s = self.cfg.serving
         if detector_checkpoint is not None and not live_extract:
             raise ValueError("detector_checkpoint needs live_extract=True")
@@ -101,6 +116,12 @@ class ServeApp:
                                  "pool_replicas must be 1")
             params = None
             restore = None
+            # nvcc builds the variant's missing libraries while the
+            # checkpoint restores (the JAX app's overlap of restore and
+            # cache); the CPU runs the plain versions and builds nothing.
+            aot = _kernel_cache(self.cfg, live_extract, device)
+            if aot is not None:
+                self.boot_info["aot_prefetched"] = aot.prefetch()
             if checkpoint_path is not None:
                 from vilbert_multitask_tpu_torch.checkpoint import (
                     restore_params_async,
@@ -115,9 +136,12 @@ class ServeApp:
             store = FeatureStore(feature_root)
             if live_extract:
                 store = self._live_store(store, detector_checkpoint, device)
+            phases = {}
             if restore is not None:
                 params = restore.join()
                 self.boot_info["restore_s"] = round(restore.seconds, 1)
+                phases["restore_s"] = restore.seconds
+            phases.update(_join_kernel_cache(aot, self.boot_info))
             t0 = time.perf_counter()
             with obs.span("serve.boot"):
                 # pool_replicas engines share ONE set of weights (the
@@ -132,6 +156,8 @@ class ServeApp:
                     if params is None:
                         params = engines[0].state_dict()
                 engine = engines
+                for phase, seconds in phases.items():
+                    engines[0].book_boot_time(phase, seconds)
             self.boot_info["engine_init_s"] = round(
                 time.perf_counter() - t0, 1)
             if engine_factory is None:
@@ -289,10 +315,13 @@ class ServeApp:
                                     media_root=self.cfg.serving.media_root)
 
     def _refresh_boot_phases(self) -> None:
-        """Fold the engines' boot-phase split (upload_s: weight load;
-        compile_s: graph capture at warmup) into ``/healthz``'s boot
-        section. Summed across the pool — warmup phases accumulate, so this
-        runs again after :meth:`warm`. Tolerates injected test doubles."""
+        """Fold the engines' boot-phase split into ``/healthz``'s boot
+        section: the JAX app's restore_s (checkpoint restore), cache_load_s
+        (loading the built kernel libraries), compile_s (nvcc on a cache
+        miss plus the graph captures at warmup, also booked apart as
+        nvcc_s and capture_s) and upload_s (weight load). Summed across
+        the pool — warmup phases accumulate, so this runs again after
+        :meth:`warm`. Tolerates injected test doubles."""
         phases: dict = {}
         for rep in getattr(self.engine, "replicas", []):
             times = getattr(rep.engine, "boot_times", None)
@@ -477,12 +506,30 @@ class ServeApp:
         upstream ``.bin``/``.pth`` (:func:`..checkpoint.restore_params`),
         cast to the engine's ``param_dtype``, so an int8 deployment
         re-quantizes an incoming f32 checkpoint; ``params`` an
-        upstream-layout state dict. Not on a mesh: its ranks load together
-        (restart the launch with the new checkpoint)."""
+        upstream-layout state dict. On a mesh every rank restores its own
+        shard of ``checkpoint_path`` (``InferenceEngine.load_checkpoint``:
+        a restore that fails on any rank fails the swap and leaves every
+        rank on its old weights); an in-memory ``params`` cannot reach the
+        other ranks, which run in processes of their own."""
         if self.engine.mesh is not None:
-            raise NotImplementedError(
-                "rolling_swap on a mesh: every rank must load the new "
-                "weights; restart the launch with --checkpoint")
+            if params is not None or checkpoint_path is None:
+                raise ValueError(
+                    "rolling_swap on a mesh needs checkpoint_path: the other "
+                    "ranks are processes of their own and cannot receive an "
+                    "in-memory tree; each restores its shard from the path")
+            # One replica spans the ranks. It stays ready: the load takes
+            # the engine's dispatch lock, so it waits for the forward in
+            # flight, and a job claimed meanwhile runs after it, on the new
+            # weights. A refused load leaves it serving the old ones.
+            rep = self.engine.replicas[0]
+            t0 = time.perf_counter()
+            obs.record_event("rolling_swap_start", checkpoint=checkpoint_path)
+            rep.engine.load_checkpoint(checkpoint_path)
+            rep.swaps += 1
+            report = {"replicas": [{"name": rep.name, "load_s": round(
+                time.perf_counter() - t0, 3)}], "skipped": [],
+                "min_ready_seen": self.engine.ready_count()}
+            return self._swapped(report, checkpoint_path, t0)
         if params is None:
             if checkpoint_path is None:
                 raise ValueError("rolling_swap needs checkpoint_path or "
@@ -497,8 +544,13 @@ class ServeApp:
                          checkpoint=checkpoint_path or "<in-memory>")
         report = self.engine.rolling_swap(
             lambda eng: eng.load_params(params))
+        return self._swapped(report, checkpoint_path or "<in-memory>", t0)
+
+    def _swapped(self, report: dict, checkpoint: str, t0: float) -> dict:
+        """A finished swap's bookkeeping: its report, the model generation
+        and the result cache."""
         report["total_s"] = round(time.perf_counter() - t0, 3)
-        report["checkpoint"] = checkpoint_path or "<in-memory>"
+        report["checkpoint"] = checkpoint
         # The swap changed what the model computes: bump the generation so
         # the cache-key fingerprint rotates, and drop every entry minted
         # under the old generation in one transaction. A post-swap replay
@@ -641,6 +693,38 @@ class ServeApp:
                 stop()
 
 
+def _kernel_cache(cfg: FrameworkConfig, live_extract: bool, device):
+    """The boot's :class:`..engine.aotcache.AotCache` over
+    ``cfg.engine.aot_cache_dir`` on the card; None on the CPU, and where
+    the card asked for is missing (the engine then refuses to start)."""
+    import torch
+
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
+        return None
+    from vilbert_multitask_tpu_torch.engine.aotcache import (
+        AotCache,
+        compile_fingerprint,
+    )
+
+    return AotCache(cfg.engine.aot_cache_dir,
+                    compile_fingerprint(cfg, live_extract=live_extract))
+
+
+def _join_kernel_cache(aot, boot_info: dict) -> Dict[str, float]:
+    """Wait for the boot's library builds and load them (a failed build
+    raises: no kernel, no server); the boot phases they take."""
+    if aot is None:
+        return {"cache_load_s": 0.0, "compile_s": 0.0}
+    built = aot.join()
+    boot_info["aot_cache"] = {
+        "dir": aot.root, "misses": built["misses"],
+        "libraries": {n: {"status": r["status"],
+                          "seconds": round(r["seconds"], 3)}
+                      for n, r in built["libraries"].items()}}
+    return {"cache_load_s": built["cache_load_s"],
+            "compile_s": built["compile_s"], "nvcc_s": built["compile_s"]}
+
+
 def mesh_of_world(cfg: FrameworkConfig):
     """The process mesh of ``cfg.mesh`` when this process is one rank of a
     world of several (the launcher's), else None (one device)."""
@@ -658,12 +742,18 @@ def follow_rank(cfg: FrameworkConfig, *, checkpoint_path: Optional[str] = None,
     and run rank 0's dispatches until it stops."""
     mesh = mesh_of_world(cfg)
     params = None
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, aot_cache_dir=default_cache_dir(cfg, checkpoint_path)))
+    aot = _kernel_cache(cfg, False, device)
+    if aot is not None:
+        aot.prefetch()
     if checkpoint_path is not None:
         from vilbert_multitask_tpu_torch.checkpoint import restore_params
 
         params = restore_params(checkpoint_path,
                                 dtype=cfg.engine.param_dtype,
                                 cfg=cfg.model, mesh=mesh)
+    _join_kernel_cache(aot, {})
     InferenceEngine(cfg, params=params, mesh=mesh, device=device).follow()
 
 

@@ -199,7 +199,10 @@ class Trainer:
         from vilbert_multitask_tpu_torch.parallel.sharding import (
             shard_state_dict,
         )
-        from vilbert_multitask_tpu_torch.parallel.tp import parallelize
+        from vilbert_multitask_tpu_torch.parallel.tp import (
+            layout,
+            parallelize,
+        )
 
         self.cfg, self.sampler, self.loop = cfg, sampler, loop
         self.out_dir, self.log, self.eval_fn = out_dir, log_fn, eval_fn
@@ -240,7 +243,7 @@ class Trainer:
                                       else v).float()
                    for k, v in init_params.items()}
         if mesh is not None:
-            weights = shard_state_dict(weights, mesh)
+            weights = shard_state_dict(weights, mesh, layout(self.model))
         self.model.load_state_dict(weights, strict=True)
         self.model.train()
         self.tx = default_optimizer(

@@ -259,20 +259,22 @@ def create_train_state(model: nn.Module, tx: AdamW, *,
                       shard_dims=dims)
 
 
-def shard_train_state(state: TrainState, mesh) -> TrainState:
+def shard_train_state(state: TrainState, mesh,
+                      dims: Optional[Dict[str, int]] = None) -> TrainState:
     """This rank's shard of a train state of global tensors (e.g. a
     snapshot read on the host, or ``train.convert.from_jax_train_state``):
     parameters and both moments sliced by the same rules
-    (``parallel.sharding.shard_state_dict``), ready for
+    (``parallel.sharding.shard_state_dict``; ``dims``, the mesh model's
+    ``shard_dims``, where tp does not divide every head count), ready for
     :func:`load_train_state` into a mesh state."""
     from vilbert_multitask_tpu_torch.parallel.sharding import (
         shard_state_dict,
     )
 
     return dataclasses.replace(
-        state, params=dict(shard_state_dict(state.params, mesh)),
-        mu=dict(shard_state_dict(state.mu, mesh)),
-        nu=dict(shard_state_dict(state.nu, mesh)), mesh=mesh)
+        state, params=dict(shard_state_dict(state.params, mesh, dims)),
+        mu=dict(shard_state_dict(state.mu, mesh, dims)),
+        nu=dict(shard_state_dict(state.nu, mesh, dims)), mesh=mesh)
 
 
 @torch.no_grad()
