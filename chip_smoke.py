@@ -140,8 +140,21 @@ boot. the kernel-library cache (engine/aotcache.py): ``python -m
    scale-out); exactly one
    terminal push frame and one ``ResultStore`` row per submit; every batch
    the scheduler dispatched, replayed through ``run_many`` on the replica
-   that served it, must give results identical to the served ones; a clean
-   stop within 30 s;
+   that served it, must give results identical to the served ones; then
+   the faults phase on the same app, and a clean stop within 30 s;
+faults. the serving tier's fault paths on phase 7's two full-width bf16
+   replicas (``check_faults``): a seeded chaos burst of 96 mixed-family
+   submits at serve_soak.py's local fault sites; ``rolling_swap(params=)``
+   to seed-2 weights while a client posts; ``pool.kill`` of r1 mid-burst
+   (dead in ``/healthz`` within a sampler cadence); 16 concurrent
+   duplicates answered by one forward, then 16 cache hits; the one-shot
+   ``queue.claim`` threadkill (a ``thread_died`` bundle, ``/healthz``
+   unready until the loop runs again). Exactly one terminal frame and at
+   most one stored row per submit, no job run twice, dead letters only
+   for injected intake faults, the cost ledgers' conservation at 1.0 over
+   each burst with no failed dispatch, 18 ``flash_attn`` launches per
+   forward on both replicas, and every batch identical on replay with the
+   weights it was served with;
 8. entry point: ``python -m vilbert_multitask_tpu_torch.serve.app
    --features <dir> --http-port 0 --ws-port 0 --live-extract`` (ports the
    system picks, read from its ``http://`` line) in its own process boots
@@ -210,14 +223,20 @@ parallel. the process mesh (parallel/): world 1 on NCCL in this process
    each rank's heads and weight MiB; ``rolling_swap`` on a tp = 2
    ``ServeApp`` (rank 1 following) to seed-1 weights: its seconds, and
    the bundles after it within BUNDLE_BF16 of a one-device engine on
-   those weights;
+   those weights; on the same app an in-memory ``rolling_swap(params=)``
+   to seed-2 weights only rank 0 holds (broadcast leaf by leaf: its
+   seconds and bytes), its bundles within BUNDLE_BF16 of a one-device
+   engine on them and 18 ``flash_attn`` launches a forward on each rank,
+   after one that rank 1's planned ``engine.load`` fault refused with the
+   bundle left bit-equal;
 9. a ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel launch counts are read per path: each is zeroed just before the
 path runs and read just after (the detect phase's ``extract_array`` per
 image, phase 4's ``predict``, phase 6's ``run_many``, the int8 phase's
-``predict``, phase 7's served submits, which the kernels line reports); a
+``predict``, phase 7's served submits, which the kernels line reports,
+the faults phase's submits); a
 path that launched a kernel of
 its own no time fails. Graph replays count the launches their capture recorded
 (engine/graphs.py).
@@ -3671,77 +3690,88 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
         conn.request("GET", "/healthz")
         health = json.loads(conn.getresponse().read())
         rows = app.store.recent(len(jobs) + 10)
+    except BaseException:
+        app.stop()
+        raise
+    finally:
+        for c in {id(c["engine"]): c["engine"] for c in calls}.values():
+            c.__dict__.pop("run_many", None)
+        eng.__dict__.pop("run_many", None)
+    # Checked while the app still runs: the faults phase serves on it
+    # next, and moves its weights.
+    try:
+        n_novel = len(novel_solo)
+        if (det1[0] - det0[0], det1[1] - det0[1]) != (
+                NMS_PER_IMAGE * n_novel, ROI_PER_IMAGE * n_novel) \
+                or det2 != det1:
+            raise AssertionError(
+                f"novel uploads: detector launches {det0} -> {det1} for "
+                f"{n_novel} uploads, then {det2} after their resubmits")
+        n_ex = len(extractions)
+        if detector_launches != {"nms": NMS_PER_IMAGE * n_ex,
+                                 "roi_align": ROI_PER_IMAGE * n_ex}:
+            raise AssertionError(f"served: detector launches "
+                                 f"{detector_launches} for {n_ex} "
+                                 f"extractions")
+        if len(extractions) != len(uploads) or novel_launches != \
+                LAUNCHES_PER_FORWARD * 2 * n_novel:
+            raise AssertionError(f"served: {len(extractions)} extractions for "
+                                 f"{len(uploads)} uploads, {novel_launches} "
+                                 f"flash_attn launches for {2 * n_novel} "
+                                 f"novel submits")
+        one_by_one = ids["solo"] + ids["novel_solo"] + ids["novel_again"]
+        sent = one_by_one + burst_ids + posted
+        counts = {i: len(frames[i]) for i in sent}
+        if any(n != 1 for n in counts.values()) or any(
+                frames[i] for i in set(range(len(jobs))) - set(sent)):
+            raise AssertionError(f"terminal frames per submit: {counts}")
+        if len(rows) != len(sent):
+            raise AssertionError(f"{len(rows)} ResultStore rows for "
+                                 f"{len(sent)} submits")
+        served_rows = same_bucket_rows(calls)
+        swaps, top1_moved, drift, gap = [], 0, 0.0, math.inf
+        for i in sent:
+            task_id, question, images = jobs[i]
+            frame = frames[i][0]
+            if "result" not in frame:
+                raise AssertionError(f"submit {i}: {frame}")
+            want = eng.predict(task_id, question, images).to_json()
+            got = {k: v for k, v in frame["result"].items() if k in want}
+            what = f"submit {i} (task {task_id})"
+            if i in one_by_one:
+                same_answer(got, want, what)
+            else:
+                own = [{k: v for k, v in row.items() if k in want}
+                       for row in served_rows.get(request_key(
+                           eng.prepare_from_store(task_id, question, images)),
+                           [])]
+                if got not in own:
+                    raise AssertionError(
+                        f"{what}: the frame {got} is no served row of its own "
+                        f"request ({own})")
+                swap, moved = batched_order(got, want, what)
+                top1_moved += moved
+                if want["kind"] == "labels":
+                    # How far batching moves a probability, against how close
+                    # predict()'s ranked labels sit: a swap needs drift > gap.
+                    g = [x["confidence"] for x in got["answers"]]
+                    w = [x["confidence"] for x in want["answers"]]
+                    drift = max([drift] + [abs(a - b) for a, b in zip(g, w)])
+                    gap = min([gap] + [a - b for a, b in zip(w, w[1:])])
+                if swap:
+                    swaps.append(swap)
+                    log(f"served: order differs from predict(): {swap}")
+        eng.feature_store = base_store
+        replayed = replay_calls(calls)
+        if replayed != len(sent):
+            raise AssertionError(f"{replayed} served results replayed for "
+                                 f"{len(sent)} submits")
+        # faults: the serving tier's fault paths on the same app
+        check_faults(torch, report, app)
     finally:
         t_stop = time.perf_counter()
         app.stop()
         stop_s = time.perf_counter() - t_stop
-        for c in {id(c["engine"]): c["engine"] for c in calls}.values():
-            c.__dict__.pop("run_many", None)
-        eng.__dict__.pop("run_many", None)
-    n_novel = len(novel_solo)
-    if (det1[0] - det0[0], det1[1] - det0[1]) != (
-            NMS_PER_IMAGE * n_novel, ROI_PER_IMAGE * n_novel) \
-            or det2 != det1:
-        raise AssertionError(
-            f"novel uploads: detector launches {det0} -> {det1} for "
-            f"{n_novel} uploads, then {det2} after their resubmits")
-    if detector_launches != {"nms": NMS_PER_IMAGE * len(extractions),
-                             "roi_align": ROI_PER_IMAGE * len(extractions)}:
-        raise AssertionError(f"served: detector launches {detector_launches}"
-                             f" for {len(extractions)} extractions")
-    if len(extractions) != len(uploads) or novel_launches != \
-            LAUNCHES_PER_FORWARD * 2 * n_novel:
-        raise AssertionError(f"served: {len(extractions)} extractions for "
-                             f"{len(uploads)} uploads, {novel_launches} "
-                             f"flash_attn launches for {2 * n_novel} "
-                             f"novel submits")
-    one_by_one = ids["solo"] + ids["novel_solo"] + ids["novel_again"]
-    sent = one_by_one + burst_ids + posted
-    counts = {i: len(frames[i]) for i in sent}
-    if any(n != 1 for n in counts.values()) or any(
-            frames[i] for i in set(range(len(jobs))) - set(sent)):
-        raise AssertionError(f"terminal frames per submit: {counts}")
-    if len(rows) != len(sent):
-        raise AssertionError(f"{len(rows)} ResultStore rows for "
-                             f"{len(sent)} submits")
-    served_rows = same_bucket_rows(calls)
-    swaps, top1_moved, drift, gap = [], 0, 0.0, math.inf
-    for i in sent:
-        task_id, question, images = jobs[i]
-        frame = frames[i][0]
-        if "result" not in frame:
-            raise AssertionError(f"submit {i}: {frame}")
-        want = eng.predict(task_id, question, images).to_json()
-        got = {k: v for k, v in frame["result"].items() if k in want}
-        what = f"submit {i} (task {task_id})"
-        if i in one_by_one:
-            same_answer(got, want, what)
-        else:
-            own = [{k: v for k, v in row.items() if k in want}
-                   for row in served_rows.get(request_key(
-                       eng.prepare_from_store(task_id, question, images)),
-                       [])]
-            if got not in own:
-                raise AssertionError(
-                    f"{what}: the frame {got} is no served row of its own "
-                    f"request ({own})")
-            swap, moved = batched_order(got, want, what)
-            top1_moved += moved
-            if want["kind"] == "labels":
-                # How far batching moves a probability, against how close
-                # predict()'s ranked labels sit: a swap needs drift > gap.
-                g = [x["confidence"] for x in got["answers"]]
-                w = [x["confidence"] for x in want["answers"]]
-                drift = max([drift] + [abs(a - b) for a, b in zip(g, w)])
-                gap = min([gap] + [a - b for a, b in zip(w, w[1:])])
-            if swap:
-                swaps.append(swap)
-                log(f"served: order differs from predict(): {swap}")
-    eng.feature_store = base_store
-    replayed = replay_calls(calls)
-    if replayed != len(sent):
-        raise AssertionError(f"{replayed} served results replayed for "
-                             f"{len(sent)} submits")
     solo_forwards = solo_launches // LAUNCHES_PER_FORWARD
     burst_forwards = ((launches - solo_launches - novel_launches)
                       // LAUNCHES_PER_FORWARD)
@@ -3952,6 +3982,451 @@ def check_scale_out(report: dict, app, eng, calls: list, post, drain,
         "novel_extractions_during_capture": len(novel_capture),
         "replicas": info}
     return posted
+
+
+# ------------------------------------------------------------ faults phase
+# serve_soak.py's _chaos_plan at the sites an in-process worker reaches
+# (its remote.post flaps need the remote worker): (site, kind, rate, delay).
+FAULT_CHAOS_RULES = (("engine.dispatch", "delay", 0.25, 0.05),
+                     ("queue.claim", "delay", 0.3, 0.02),
+                     ("worker.intake", "error", 0.05, 0.0))
+FAULT_SEED = 0  # its worker.intake stream errs at the 13th intake
+FAULT_SUBMITS = {"chaos": 96, "swap": 48, "kill": 64, "threadkill": 64}
+FAULT_DUPLICATES = 16
+FAULT_DUPLICATE = (1, "what is the duplicated question", ["img_3"])
+
+
+def check_faults(torch, report: dict, app) -> int:
+    """The serving tier's fault paths on phase 7's app after its scale-out
+    (two full-width bf16 replicas on this card, graphs captured), in turn:
+    a seeded chaos burst of 96 mixed-family submits at serve_soak.py's
+    local fault sites; ``rolling_swap(params=)`` to seed-2 weights across
+    the pool while a client posts; ``pool.kill`` of r1 mid-burst; 16
+    concurrent duplicates of one request (its dispatch held 1 s, so all
+    attach to one forward), then 16 more after it is answered; the
+    one-shot ``queue.claim`` threadkill, and the guard's recovery when the
+    loop runs again under its name.
+
+    Gates: one terminal frame per submit and at most one stored row;
+    results streamed by the engines equal to result frames (no job run
+    twice); dead-letter frames only for injected intake faults;
+    ``min_ready_seen >= 1`` and ``cache_invalidated > 0`` for the swap;
+    r1 ``dead`` in ``/healthz`` within one sampler cadence (+0.5 s);
+    duplicates answered as their leader with one forward, then cache hits
+    with none; a ``thread_died`` bundle and ``/healthz`` unready until the
+    loop is back; the cost ledgers' conservation at 1.0 over each burst
+    with no failed dispatch (the kill's failed batch stays on the busy
+    ledger as waste by design, and is reported); ``flash_attn``
+    launches equal to 18 per forward dispatched, on both replicas. Every
+    served batch is then replayed on its engine with the weights it was
+    served with (seed-2 first, then the phase's own weights restored by
+    another in-memory swap) and must be identical. Returns the phase's
+    ``flash_attn`` launches."""
+    import http.client
+    import queue as queue_mod
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vilbert_multitask_tpu_torch.engine.runtime import init_state_dict
+    from vilbert_multitask_tpu_torch.ops.coattention import (
+        flash_cross_attention,
+    )
+    from vilbert_multitask_tpu_torch.resilience import (
+        FaultPlan,
+        FaultRule,
+        clear_plan,
+        install_plan,
+    )
+
+    t_phase = time.perf_counter()
+    pool = app.engine
+    engines = {r.name: r.engine for r in pool.replicas}
+    if sorted(engines) != ["r0", "r1"] or pool.ready_count() != 2:
+        raise AssertionError(f"faults: replicas {pool.replicas_info()}")
+    cadence = app.cfg.serving.sampler_cadence_s
+    # The main path's seed-0 weights (both replicas serve them), restored
+    # after the phase, and the tree the pool swaps to.
+    trees = {"phase": init_state_dict(engines["r0"].cfg.model, seed=0),
+             "seed2": init_state_dict(engines["r0"].cfg.model, seed=2)}
+    calls: list = []
+    loads: dict = {name: [] for name in engines}
+    for name, e in engines.items():
+        record_run_many(e, calls)
+        real = e.load_params
+
+        def load_params(params, _real=real, _name=name):
+            t0 = time.perf_counter()
+            _real(params)
+            loads[_name].append((t0, time.perf_counter()))
+
+        e.load_params = load_params
+    jobs, subs, frames, bodies, posted_at = {}, {}, {}, {}, {}
+
+    def new_jobs(specs) -> list:
+        ids = []
+        for spec in specs:
+            i = len(jobs)
+            jobs[i] = spec
+            subs[i] = app.hub.subscribe(f"fault{i}")
+            frames[i] = []
+            ids.append(i)
+        return ids
+
+    def mixed(n: int, tag: str) -> list:
+        return new_jobs([(t, f"{q} {tag} {k}", imgs) for k, (t, q, imgs)
+                         in zip(range(n), SERVED_FAMILIES * n)])
+
+    def send(ids, gap_s: float = 0.0) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", app.http_port,
+                                          timeout=30)
+        try:
+            for i in ids:
+                task_id, question, images = jobs[i]
+                posted_at[i] = time.perf_counter()
+                conn.request("POST", "/", body=json.dumps({
+                    "task_id": task_id, "socket_id": f"fault{i}",
+                    "question": question,
+                    "image_list": [f"{n}.jpg" for n in images]}),
+                    headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                bodies[i] = json.loads(resp.read())
+                if resp.status != 200:
+                    raise AssertionError(f"faults submit {i}: "
+                                         f"{resp.status} {bodies[i]}")
+                time.sleep(gap_s)
+        finally:
+            conn.close()
+
+    def send_from(clients: int, ids) -> None:
+        with ThreadPoolExecutor(clients) as ex:
+            list(ex.map(send, [ids[k::clients] for k in range(clients)]))
+
+    def wait_for(ids, n=None, timeout_s: float = 120.0) -> None:
+        """Collect terminal frames until ``n`` of ``ids`` (all: then 0.5 s
+        more, where a duplicate would show) have one."""
+        n = len(ids) if n is None else n
+        end = time.perf_counter() + timeout_s
+        grace = None
+        while time.perf_counter() < (grace or end):
+            idle = True
+            for i, sub in subs.items():
+                while True:
+                    try:
+                        frame = sub.get_nowait()
+                    except queue_mod.Empty:
+                        break
+                    idle = False
+                    if is_terminal(frame):
+                        frames[i].append(frame)
+            if grace is None and sum(bool(frames[i]) for i in ids) >= n:
+                if n < len(ids):
+                    return
+                grace = time.perf_counter() + 0.5
+            if idle:
+                time.sleep(0.002)
+
+    def healthz() -> tuple:
+        conn = http.client.HTTPConnection("127.0.0.1", app.http_port,
+                                          timeout=10)
+        try:
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    def one_terminal(ids, what: str) -> int:
+        counts = {i: len(frames[i]) for i in ids}
+        if any(n != 1 for n in counts.values()):
+            raise AssertionError(f"faults {what}: terminal frames per "
+                                 f"submit {counts}")
+        return sum("result" in frames[i][0] for i in ids)
+
+    def streamed(since: int) -> int:
+        return sum(len(c["got"]) for c in calls[since:])
+
+    def ledger() -> tuple:
+        return app.attrib.busy_s, app.attrib.attributed_s
+
+    def conservation(since: tuple) -> float:
+        busy, attributed = ledger()
+        busy -= since[0]
+        return (round((attributed - since[1]) / busy, 4) if busy > 0
+                else 1.0)
+
+    out: dict = {}
+    flash_cross_attention.launches = 0
+    # 1. the chaos burst
+    led, n0 = ledger(), len(calls)
+    plan = install_plan(FaultPlan(FAULT_SEED, [
+        FaultRule(site, kind, rate=rate, delay_s=delay)
+        for site, kind, rate, delay in FAULT_CHAOS_RULES]))
+    t0 = time.perf_counter()
+    try:
+        chaos = mixed(FAULT_SUBMITS["chaos"], "chaos")
+        send_from(8, chaos)
+        wait_for(chaos)
+    finally:
+        clear_plan()
+    injected = plan.injections()
+    served = one_terminal(chaos, "chaos")
+    dead = [frames[i][0] for i in chaos if "result" not in frames[i][0]]
+    if any("FaultInjected" not in f.get("error", "")
+           or "worker.intake" not in f["error"] for f in dead) \
+            or len(dead) > injected.get("worker.intake", 0):
+        raise AssertionError(f"faults chaos: terminal frames that are no "
+                             f"result {dead} for injections {injected}")
+    if sorted(s for s, n in injected.items() if n) != [
+            "engine.dispatch", "queue.claim", "worker.intake"]:
+        raise AssertionError(f"faults chaos: injections {injected}")
+    out["chaos"] = {"submits": len(chaos), "results": served,
+                    "dead_letters": len(dead), "injections": injected,
+                    "streamed": streamed(n0),
+                    "conservation": conservation(led),
+                    "wall_s": time.perf_counter() - t0}
+    # 2. rolling_swap(params=) across the pool while a client posts
+    led, n1 = ledger(), len(calls)
+    swap_ids = mixed(FAULT_SUBMITS["swap"], "swap")
+    poster = threading.Thread(target=send, args=(swap_ids, 0.02),
+                              name="faults-poster", daemon=True)
+    t0 = time.perf_counter()
+    poster.start()
+    wait_for(swap_ids, n=4)
+    t_swap = time.perf_counter()
+    swap = app.rolling_swap(params=trees["seed2"])
+    t_swapped = time.perf_counter()
+    poster.join(timeout=60)
+    wait_for(swap_ids)
+    served = one_terminal(swap_ids, "swap")
+    live = sum(t_swap <= posted_at[i] <= t_swapped for i in swap_ids)
+    if (swap["min_ready_seen"] < 1 or swap["skipped"]
+            or [r["name"] for r in swap["replicas"]] != ["r0", "r1"]
+            or swap["checkpoint"] != "<in-memory>"
+            or not swap["cache_invalidated"] or live < 1):
+        raise AssertionError(f"faults swap: {swap}, {live} submits "
+                             f"posted during it")
+    out["swap"] = {"submits": len(swap_ids), "results": served,
+                   "posted_during_swap": live, "report": swap,
+                   "swap_s": t_swapped - t_swap, "streamed": streamed(n1),
+                   "conservation": conservation(led),
+                   "wall_s": time.perf_counter() - t0}
+    # 3. a replica killed mid-burst
+    led, n2 = ledger(), len(calls)
+    kill_ids = mixed(FAULT_SUBMITS["kill"], "kill")
+    t0 = time.perf_counter()
+    poster = threading.Thread(target=send_from, args=(4, kill_ids),
+                              name="faults-poster", daemon=True)
+    poster.start()
+    wait_for(kill_ids, n=16)
+    t_kill = time.perf_counter()
+    pool.kill("r1")
+    dead_s = None
+    while time.perf_counter() - t_kill < 10.0:
+        _, health = healthz()
+        if {r["name"]: r["state"] for r in health["replicas"]}.get(
+                "r1") == "dead":
+            dead_s = time.perf_counter() - t_kill
+            break
+        time.sleep(0.01)
+    poster.join(timeout=60)
+    wait_for(kill_ids)
+    served = one_terminal(kill_ids, "kill")
+    _, health = healthz()
+    states = {r["name"]: r["state"] for r in health["replicas"]}
+    if dead_s is None or dead_s > cadence + 0.5 or states != {
+            "r0": "ready", "r1": "dead"}:
+        raise AssertionError(f"faults kill: r1 dead in /healthz after "
+                             f"{dead_s} s (cadence {cadence} s), states "
+                             f"{states}")
+    out["kill"] = {"submits": len(kill_ids), "results": served,
+                   "dead_visible_s": dead_s, "sampler_cadence_s": cadence,
+                   "failovers": sum(r["failovers"]
+                                    for r in pool.replicas_info()),
+                   "streamed": streamed(n2),
+                   "conservation": conservation(led),
+                   "wall_s": time.perf_counter() - t0}
+    # 4. duplicates: coalesced onto one forward, then cache hits
+    led, n3 = ledger(), len(calls)
+    f0 = flash_cross_attention.launches
+    t0 = time.perf_counter()
+    install_plan(FaultPlan(0, [FaultRule("engine.dispatch", "delay",
+                                         rate=1.0, delay_s=1.0)]))
+    try:
+        dups = new_jobs([FAULT_DUPLICATE] * FAULT_DUPLICATES)
+        send_from(FAULT_DUPLICATES, dups)
+        wait_for(dups)
+    finally:
+        clear_plan()
+    torch.cuda.synchronize()
+    leader_launches = flash_cross_attention.launches - f0
+    hits = new_jobs([FAULT_DUPLICATE] * FAULT_DUPLICATES)
+    send(hits)
+    wait_for(hits)
+    torch.cuda.synchronize()
+    one_terminal(dups + hits, "duplicates")
+    markers = sorted(bodies[i].get("cache") for i in dups)
+    answers = [frames[i][0].get("result") for i in dups + hits]
+    if (markers != ["coalesced"] * (FAULT_DUPLICATES - 1) + ["miss"]
+            or any(bodies[i].get("cache") != "hit" for i in hits)
+            or answers[0] is None or any(a != answers[0] for a in answers)
+            or streamed(n3) != 1 or leader_launches != LAUNCHES_PER_FORWARD
+            or flash_cross_attention.launches - f0 != leader_launches):
+        raise AssertionError(
+            f"faults duplicates: markers {markers}, hits "
+            f"{[bodies[i].get('cache') for i in hits]}, "
+            f"{len({json.dumps(a, sort_keys=True) for a in answers})} "
+            f"distinct answers, {streamed(n3)} streamed, "
+            f"{leader_launches} flash_attn launches for the leader")
+    out["duplicates"] = {"coalesced": FAULT_DUPLICATES - 1,
+                         "hits": len(hits), "forwards": streamed(n3),
+                         "leader_flash_launches": leader_launches,
+                         "conservation": conservation(led),
+                         "wall_s": time.perf_counter() - t0}
+    # 5. the one-shot queue.claim threadkill, and the guard's recovery
+    led, n4 = ledger(), len(calls)
+    t0 = time.perf_counter()
+    tk_a = mixed(FAULT_SUBMITS["threadkill"] // 2, "threadkill a")
+    tk_b = mixed(FAULT_SUBMITS["threadkill"] // 2, "threadkill b")
+    send(tk_a)
+    plan = install_plan(FaultPlan(0, [FaultRule(
+        "queue.claim", "error", rate=1.0, max_injections=1)]))
+    t_kill = time.perf_counter()
+    dead, detect_s = {}, None
+    try:
+        send(tk_b)
+        while time.perf_counter() - t_kill < cadence + 5.0:
+            status, health = healthz()
+            dead = health["threads"]["dead"]
+            if status == 503 and dead:
+                detect_s = time.perf_counter() - t_kill
+                break
+            time.sleep(0.01)
+    finally:
+        clear_plan()
+    bundle, end = None, time.perf_counter() + 10.0
+    while bundle is None and time.perf_counter() < end:
+        for path in app.recorder.bundles():
+            with open(path) as f:
+                b = json.load(f)
+            if b.get("event") == "thread_died":
+                bundle = b
+        time.sleep(0.05)
+    if (plan.injections() != {"queue.claim": 1} or detect_s is None
+            or len(dead) != 1
+            or not next(iter(dead)).startswith("sched-intake-")
+            or bundle is None or bundle["detail"]["thread"] not in dead):
+        raise AssertionError(f"faults threadkill: injections "
+                             f"{plan.injections()}, dead {dead} after "
+                             f"{detect_s} s, bundle "
+                             f"{bundle and bundle['detail']}")
+    name = next(iter(dead))
+    restarted = threading.Thread(target=app.worker.scheduler._intake_loop,
+                                 name=name, daemon=True)
+    restarted.start()
+    t_restart = time.perf_counter()
+    recovered_s = None
+    while time.perf_counter() - t_restart < 10.0:
+        _, health = healthz()
+        if not health["threads"]["dead"]:
+            recovered_s = time.perf_counter() - t_restart
+            break
+        time.sleep(0.01)
+    wait_for(tk_a + tk_b)
+    served = one_terminal(tk_a + tk_b, "threadkill")
+    if recovered_s is None:
+        raise AssertionError(f"faults threadkill: /healthz still lists "
+                             f"{health['threads']['dead']} dead")
+    out["threadkill"] = {"submits": len(tk_a) + len(tk_b), "results": served,
+                         "dead_thread": name, "detect_s": detect_s,
+                         "recovered_s": recovered_s,
+                         "bundle_error": bundle["detail"].get("error"),
+                         "streamed": streamed(n4),
+                         "conservation": conservation(led),
+                         "wall_s": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    launches = flash_cross_attention.launches
+    t_traffic = time.perf_counter() - t_phase
+    # Stored rows: at most one per submit.
+    rows: dict = {}
+    for row in app.store.recent(len(jobs) + 4096):
+        rows[row["socket_id"]] = rows.get(row["socket_id"], 0) + 1
+    extra = {s: n for s, n in rows.items()
+             if s.startswith("fault") and n > 1}
+    for name_, burst in out.items():
+        if "streamed" in burst and burst["streamed"] != burst["results"]:
+            raise AssertionError(f"faults {name_}: {burst['streamed']} "
+                                 f"results streamed for {burst['results']} "
+                                 f"result frames")
+        if name_ != "kill" and burst["conservation"] != 1.0:
+            raise AssertionError(f"faults {name_}: device_s conservation "
+                                 f"{burst['conservation']}")
+    if extra:
+        raise AssertionError(f"faults: stored rows per submit {extra}")
+    for e in engines.values():
+        e.__dict__.pop("run_many", None)
+    phase_calls = list(calls)
+    forwards = sum(len(c["engine"].chunk_plan(
+        [r.n_images for r in c["reqs"]],
+        chunk_rows=c["kw"].get("chunk_rows"))) for c in phase_calls)
+    by_engine = {name: sum(c["engine"] is e for c in phase_calls)
+                 for name, e in engines.items()}
+    if launches != LAUNCHES_PER_FORWARD * forwards or not all(
+            by_engine.values()):
+        raise AssertionError(f"faults: {launches} flash_attn launches for "
+                             f"{forwards} forwards, batches by replica "
+                             f"{by_engine}")
+    # Replays, each batch on the weights it was served with: the seed-2
+    # epoch now, then the phase's own weights restored (r1 is dead in the
+    # pool, so the swap skips it and it is loaded directly).
+    engines["r1"].killed = False
+    epochs: dict = {0: [], 1: []}
+    for c in phase_calls:
+        name_ = next(n for n, e in engines.items() if e is c["engine"])
+        done = [t1 for _, t1 in loads[name_] if t1 <= c["t"][0]]
+        if any(t0 < c["t"][1] and t1 > c["t"][0]
+               for t0, t1 in loads[name_]):
+            raise AssertionError(f"faults: a batch on {name_} overlapped "
+                                 f"its load")
+        epochs[len(done)].append(c)
+    replayed = replay_calls(epochs[1])
+    back = app.rolling_swap(params=trees["phase"])
+    engines["r1"].load_params(trees["phase"])
+    replayed += replay_calls(epochs[0])
+    for e in engines.values():
+        e.__dict__.pop("load_params", None)
+    if replayed != sum(len(c["reqs"]) for c in phase_calls):
+        raise AssertionError(f"faults: {replayed} results replayed")
+    out.update(launches=launches, forwards=forwards,
+               batches_by_replica=by_engine, replayed_identical=replayed,
+               batches_by_weights={"phase": len(epochs[0]),
+                                   "seed2": len(epochs[1])},
+               swap_back=back, traffic_s=t_traffic,
+               wall_s=time.perf_counter() - t_phase)
+    report["faults"] = out
+    log(f"faults: on phase 7's 2 full-width bf16 replicas: chaos burst of "
+        f"{len(chaos)} mixed-family submits from 8 clients (seed "
+        f"{FAULT_SEED}, injections {injected}): one terminal each, "
+        f"{out['chaos']['results']} results, {out['chaos']['dead_letters']} "
+        f"intake dead letters, conservation {out['chaos']['conservation']}; "
+        f"in-memory rolling_swap to seed-2 weights in "
+        f"{out['swap']['swap_s']:.2f}s with {live} submits posted during "
+        f"it, min_ready_seen {swap['min_ready_seen']}, cache_invalidated "
+        f"{swap['cache_invalidated']}, conservation "
+        f"{out['swap']['conservation']}; r1 killed mid-burst of "
+        f"{len(kill_ids)}: dead in /healthz after {dead_s:.3f}s (cadence "
+        f"{cadence}s), {out['kill']['failovers']} failovers, one terminal "
+        f"each, conservation {out['kill']['conservation']} (the failed "
+        f"batch's wall is waste); {FAULT_DUPLICATES} concurrent duplicates "
+        f"on one forward ({leader_launches} flash_attn launches), "
+        f"{len(hits)} hits after; threadkill: {name} dead in /healthz after "
+        f"{detect_s:.3f}s, thread_died bundle, ready again "
+        f"{recovered_s:.3f}s after the loop restarted, conservation "
+        f"{out['threadkill']['conservation']}; no job run twice, at most "
+        f"one stored row per submit; {launches} flash_attn launches for "
+        f"{forwards} forwards (batches by replica {by_engine}); "
+        f"{replayed} served results identical on replay; traffic "
+        f"{t_traffic:.1f}s, phase {out['wall_s']:.1f}s")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 8
@@ -4457,15 +4932,34 @@ def parallel_tp3_rank(rank: int, job: dict) -> dict:
 
 def parallel_swap_rank(rank: int, job: dict) -> dict:
     """``ServeApp`` at tp = 2 on one rank of a 2-rank world sharing the
-    card (rank 0; rank 1 follows), booted from the old checkpoint: a
-    ``rolling_swap`` to the new one, then the six families' bundles."""
+    card (rank 0; rank 1 follows), booted from the old checkpoint. An
+    in-memory swap to the seed-2 tree that rank 1's planned ``engine.load``
+    fault refuses (the first request's bundle must not move); a
+    ``rolling_swap`` to the new checkpoint, then the six families'
+    bundles; an in-memory ``rolling_swap(params=)`` to the seed-2 tree,
+    which only rank 0 holds, then the six families' bundles again. Every
+    rank returns its ``flash_attn`` launches and rank 0 the forwards it
+    drove."""
+    from vilbert_multitask_tpu_torch.engine.runtime import init_state_dict
+    from vilbert_multitask_tpu_torch.ops.coattention import (
+        flash_cross_attention,
+    )
     from vilbert_multitask_tpu_torch.parallel import distributed
+    from vilbert_multitask_tpu_torch.resilience.faults import (
+        FaultPlan,
+        FaultRule,
+        install_plan,
+    )
     from vilbert_multitask_tpu_torch.serve.app import ServeApp, follow_rank
 
     dev = str(distributed.device())
+    flash_cross_attention.launches = 0
     if rank != 0:
+        install_plan(FaultPlan(rules=[FaultRule("engine.load",
+                                                max_injections=1)]))
         follow_rank(job["cfg"], checkpoint_path=job["old"], device=dev)
-        return {}
+        return {"flash_attn": flash_cross_attention.launches}
+    tree = init_state_dict(job["cfg"].model, seed=2)
     t0 = time.perf_counter()
     app = ServeApp(job["cfg"], feature_root=job["root"],
                    checkpoint_path=job["old"], device=dev)
@@ -4473,14 +4967,35 @@ def parallel_swap_rank(rank: int, job: dict) -> dict:
         boot_s = time.perf_counter() - t0
         eng = app.engine.replicas[0].engine
         app.engine.mark_ready()
-        before = _bundles(eng, job["requests"][:1])
+        first = job["requests"][:1]
+        before = _bundles(eng, first)
+        try:
+            app.rolling_swap(params=tree)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        after_refused = _bundles(eng, first)
         t1 = time.perf_counter()
         swap = app.rolling_swap(checkpoint_path=job["new"])
         swap_s = time.perf_counter() - t1
-        return {"before": before, "after": _bundles(eng, job["requests"]),
-                "swap": swap, "swap_s": swap_s, "boot_s": boot_s,
+        last_swap = app.boot_info.get("last_swap")
+        after = _bundles(eng, job["requests"])
+        t1 = time.perf_counter()
+        tree_swap = app.rolling_swap(params=tree)
+        tree_swap_s = time.perf_counter() - t1
+        n0 = flash_cross_attention.launches
+        after_tree = _bundles(eng, job["requests"])
+        return {"before": before, "refused": refused,
+                "after_refused": after_refused,
+                "after": after, "swap": swap, "swap_s": swap_s,
+                "after_tree": after_tree, "tree_swap": tree_swap,
+                "tree_swap_s": tree_swap_s,
+                "flash_attn_after_tree": flash_cross_attention.launches - n0,
+                "flash_attn": flash_cross_attention.launches,
+                "forwards": 2 * len(first) + 2 * len(job["requests"]),
+                "boot_s": boot_s,
                 "boot_phases": app.boot_info.get("boot_phases"),
-                "last_swap": app.boot_info.get("last_swap")}
+                "last_swap": last_swap}
     finally:
         app.stop()
 
@@ -4989,12 +5504,18 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
             results_db_path=os.path.join(state, "swap_r.sqlite3"),
             media_root=os.path.join(state, "swap_media"), http_port=0,
             ws_port=0))
+    ref_tree = InferenceEngine(bf16, params=init_state_dict(model, seed=2),
+                               feature_store=store, device=device)
+    want_tree = _bundles(ref_tree, REQUESTS)
+    del ref_tree
+    if device == "cuda":
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sw = launch.spawn_ranks(parallel_swap_rank, 2, backend="gloo",
-                            device=device, args=(dict(
-                                cfg=swap_cfg, old=ckpt, new=new_ckpt,
-                                root=root, requests=REQUESTS),),
-                            timeout_s=900)[0]
+    sw, sw1 = launch.spawn_ranks(parallel_swap_rank, 2, backend="gloo",
+                                 device=device, args=(dict(
+                                     cfg=swap_cfg, old=ckpt, new=new_ckpt,
+                                     root=root, requests=REQUESTS),),
+                                 timeout_s=900)
     errs, useds, _, differs = _same_answers(
         sw["after"], want_new, BUNDLE_BF16, "tp=2 swap", exact_answers=False)
     _same_answers(sw["before"], want_bf16, BUNDLE_BF16, "tp=2 before swap",
@@ -5017,6 +5538,48 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
         f"engine on the new weights max abs err {errs:.3e} ({useds:.2f} of "
         f"BUNDLE_BF16; answers reordered by bf16 ties in tasks {differs}); "
         f"last_swap {sw['last_swap']}")
+    # ... and the in-memory swaps of the same session: a seed-2 tree only
+    # rank 0 holds, broadcast leaf by leaf. The refused one (rank 1's
+    # planned engine.load fault) keeps every rank on the old weights.
+    refused = sw["refused"] or ""
+    if not ("rank 1" in refused and "engine.load" in refused
+            and "every rank keeps its weights" in refused
+            and "rank 0" not in refused):
+        raise AssertionError(f"tp=2 in-memory swap with rank 1's load "
+                             f"fault: {refused!r}")
+    if not all(np.array_equal(a, b) for a, b in zip(
+            flat_bundle(sw["before"][first][0]).values(),
+            flat_bundle(sw["after_refused"][first][0]).values())):
+        raise AssertionError("tp=2 refused in-memory swap moved the bundle")
+    errs2, useds2, _, differs2 = _same_answers(
+        sw["after_tree"], want_tree, BUNDLE_BF16, "tp=2 in-memory swap",
+        exact_answers=False)
+    per_fwd = {"rank0_after_swap": sw["flash_attn_after_tree"] / len(
+        REQUESTS), "rank0": sw["flash_attn"] / sw["forwards"],
+        "rank1": sw1["flash_attn"] / sw["forwards"]}
+    if any(v != LAUNCHES_PER_FORWARD for v in per_fwd.values()):
+        raise AssertionError(f"tp=2 in-memory swap: flash_attn launches "
+                             f"per forward {per_fwd}, expected "
+                             f"{LAUNCHES_PER_FORWARD} on each rank")
+    tree = sw["tree_swap"]
+    if tree["checkpoint"] != "<in-memory>" or tree["min_ready_seen"] != 1 \
+            or not tree["broadcast_bytes"]:
+        raise AssertionError(f"tp=2 in-memory swap report {tree}")
+    rep["tp2_tree_swap"] = {
+        "swap_s": sw["tree_swap_s"], "report": tree,
+        "broadcast_bytes": tree["broadcast_bytes"], "max_abs_err": errs2,
+        "tol_used": useds2, "answers_differ": differs2,
+        "flash_launches_per_forward": per_fwd, "refused": refused}
+    log(f"parallel: in-memory rolling_swap(params=) on the same tp=2 "
+        f"ServeApp to seed-2 weights held by rank 0 alone: "
+        f"{sw['tree_swap_s']:.2f}s, {tree['broadcast_bytes']} bytes "
+        f"broadcast leaf by leaf ({tree['broadcast_bytes'] / 2**20:.1f} "
+        f"MiB); bundles after it vs a one-device bf16 engine on the seed-2 "
+        f"weights max abs err {errs2:.3e} ({useds2:.2f} of BUNDLE_BF16; "
+        f"answers reordered by bf16 ties in tasks {differs2}); flash_attn "
+        f"launches per forward {per_fwd}; a swap that rank 1's planned "
+        f"engine.load fault refused left the bundle bit-equal: "
+        f"{refused[:160]!r}")
 
     # 3. training: tp = 2 and dp = 2 against the single-device step, then a
     # snapshot resumed on a fresh launch.
@@ -5185,7 +5748,8 @@ def main() -> int:
                                  "flash_launches_train"],
                              "eval_hook_forward": report["train"][
                                  "eval_flash_launches"],
-                             "tp_rank_forward": tp_launches["flash_attn"]},
+                             "tp_rank_forward": tp_launches["flash_attn"],
+                             "faults": report["faults"]["launches"]},
         "max_abs_err": max(r["max_abs_err_f32"]
                            for r in report["flash_attn_shapes"]),
         "max_abs_err_bf16": max(r["max_abs_err_bf16"]

@@ -3,14 +3,17 @@
 
 Two gloo ranks serve the tiny config at tp = 2 (rank 0's ``ServeApp``,
 rank 1 following), booted from a checkpoint of the JAX engine's weights.
-A swap to a checkpoint of other weights that rank 1's restore fails (an
-``engine.load`` fault planned on rank 1 alone) raises on rank 0 with rank
-1's error and leaves both ranks on the old weights; the same swap then
-succeeds while a job is claimed, every job is answered, and the answers
-after it equal the JAX app's after its own ``rolling_swap`` to the same
-weights at atol 1e-4, with the same labels. The report carries
-``last_swap`` and ``cache_invalidated``, and an in-memory tree is refused
-on a mesh with the reason.
+Swaps to other weights that rank 1 refuses (an ``engine.load`` fault
+planned on rank 1 alone), from a checkpoint and from a tree in rank 0's
+memory, raise on rank 0 with rank 1's error, and a tree with one leaf of a
+wrong shape is refused on every rank; each leaves both ranks on the old
+weights. The checkpoint swap then succeeds while a job is claimed, and so
+does an in-memory swap; every job is answered, and the answers after each
+swap equal the JAX app's after its own ``rolling_swap(params=)`` to the
+same weights at atol 1e-4, with the same labels. The report carries
+``last_swap``, ``cache_invalidated`` and the bytes broadcast. An int8
+engine at tp = 2 that loads an f32 tree from rank 0's memory answers as a
+one-device int8 engine loaded with the same tree.
 """
 
 from __future__ import annotations
@@ -108,12 +111,53 @@ def test_mesh_swap_answers_as_the_jax_app_after_its_swap(world):
 def test_mesh_swap_loses_no_job_and_reports(world):
     got = world["got"]
     assert got["during"]["answers"]  # the job claimed during the swap
-    assert got["answered"] == 4
+    assert got["answered"] == 9
     # present; the jobs here went through the queue, not the result cache
     assert got["report"]["cache_invalidated"] == 0
     assert got["last_swap"]["checkpoint"].endswith("new")
     assert got["last_swap"]["replicas"][0]["load_s"] >= 0
 
 
-def test_in_memory_swap_on_a_mesh_says_why_it_cannot(world):
-    assert "cannot receive an in-memory tree" in world["got"]["in_memory"]
+@pytest.mark.parametrize("swap", ["refused_tree", "bad_shape"])
+def test_refused_in_memory_swap_leaves_every_rank_on_the_old_weights(
+        world, swap):
+    got = world["got"]
+    error = got[swap]
+    assert "load of a tree on the mesh failed" in error
+    assert "every rank keeps its weights" in error
+    if swap == "refused_tree":
+        assert "rank 1" in error and "engine.load" in error
+        assert "rank 0" not in error
+    else:  # every rank checks the leaf list before any weight moves
+        assert "rank 0" in error and "rank 1" in error
+        assert "shapes differ" in error and got["bad_key"] in error
+    assert_same_result(got[f"after_{swap}"], world["want"]["refused"], TOL)
+
+
+def test_in_memory_swap_on_a_mesh_answers_as_the_jax_app(world):
+    got, want = world["got"], world["want"]
+    assert_same_result(got["tree_old"], want["before"], TOL)
+    assert_same_result(got["after_tree"], want["after"], TOL)
+    assert got["during_tree"]["answers"]  # claimed during the swap
+    assert got["answered"] == 9
+
+
+def test_in_memory_swap_on_a_mesh_reports(world):
+    got = world["got"]
+    swap = got["last_tree_swap"]
+    assert swap["checkpoint"] == "<in-memory>"
+    # the f32 engine takes the f32 leaves as they are: each byte once
+    assert swap["broadcast_bytes"] == got["tree_bytes"]
+    assert got["tree_old_report"]["broadcast_bytes"] == got["tree_bytes"]
+    assert swap["replicas"][0]["load_s"] >= 0 and swap["min_ready_seen"] == 1
+    assert swap["cache_invalidated"] == 0
+    assert got["last_swap"]["broadcast_bytes"] == 0  # a checkpoint
+
+
+def test_int8_mesh_takes_an_f32_tree_as_one_device_does(world):
+    got = world["got"]
+    mesh, alone = got["int8_mesh"], got["int8_one_device"]
+    np.testing.assert_allclose(mesh["binary"], alone["binary"], **TOL)
+    assert mesh["answers"] == alone["answers"]
+    # quantized on rank 0 before the broadcast: int8 values and f32 scales
+    assert 0 < got["int8_bytes"] < got["tree_bytes"] / 2

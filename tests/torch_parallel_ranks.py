@@ -9,6 +9,7 @@ rank 0's result is the one the tests read unless they say otherwise.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -430,13 +431,20 @@ REFUSED_QUESTION = "is it raining"
 def swap_rank(rank: int, cfg, feature_root: str, old_ckpt: str,
               new_ckpt: str) -> dict:
     """2 ranks at tp 2: ``ServeApp`` (rank 0) booted from ``old_ckpt``
-    answers a job; a ``rolling_swap`` to ``new_ckpt`` that rank 1's
-    restore fails (an ``engine.load`` fault planned on rank 1 alone) is
-    refused and the same job answers as before; a second swap succeeds
-    while another job is claimed, and the job after it answers on the new
-    weights."""
+    answers a job. Three swaps are refused and the job answers as before
+    each time: to ``new_ckpt`` and to its tree in memory, each failed by an
+    ``engine.load`` fault planned on rank 1 alone (two injections), and to
+    a tree with one leaf of a wrong shape. Then a swap to ``new_ckpt``
+    succeeds while another job is claimed, an in-memory swap back to the
+    old tree follows, and one more to the new tree succeeds while a job is
+    claimed; a job answers after each. Last, an int8 engine at tp 2 (rank
+    1 following) loads the new f32 tree from rank 0's memory, and a
+    one-device int8 engine loads the same tree: both answer the engine
+    tests' first request."""
     import threading
 
+    from vilbert_multitask_tpu_torch.checkpoint.store import restore_params
+    from vilbert_multitask_tpu_torch.engine.runtime import InferenceEngine
     from vilbert_multitask_tpu_torch.resilience.faults import (
         FaultPlan,
         FaultRule,
@@ -445,11 +453,17 @@ def swap_rank(rank: int, cfg, feature_root: str, old_ckpt: str,
     from vilbert_multitask_tpu_torch.serve.app import ServeApp, follow_rank
     from vilbert_multitask_tpu_torch.serve.queue import make_job_message
 
+    int8_cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, param_dtype="int8"))
     if rank != 0:
         install_plan(FaultPlan(rules=[FaultRule("engine.load",
-                                                max_injections=1)]))
+                                                max_injections=2)]))
         follow_rank(cfg, checkpoint_path=old_ckpt, device="cpu")
+        InferenceEngine(int8_cfg, mesh=_mesh(dp=1, tp=2),
+                        device="cpu").follow()
         return {}
+    trees = {name: restore_params(path, cfg=cfg.model)
+             for name, path in (("old", old_ckpt), ("new", new_ckpt))}
     app = ServeApp(cfg, feature_root=feature_root, checkpoint_path=old_ckpt,
                    device="cpu")
     jobs = iter(range(100))
@@ -460,34 +474,69 @@ def swap_rank(rank: int, cfg, feature_root: str, old_ckpt: str,
         assert app.worker.step() == "acked"
         return app.store.recent()[0]["answer_text"]
 
+    def refused(**swap) -> str:
+        try:
+            app.rolling_swap(**swap)
+        except RuntimeError as e:
+            return str(e)
+        return ""
+
+    def swap_during_a_job(**swap) -> tuple:
+        box: dict = {}
+        t = threading.Thread(target=lambda: box.update(
+            report=app.rolling_swap(**swap)))
+        t.start()
+        during = answer("what is on the table")
+        t.join()
+        return box["report"], during
+
+    bad = dict(trees["new"])
+    bad_key = next(k for k in sorted(bad) if np.ndim(bad[k]) == 2)
+    bad[bad_key] = bad[bad_key][:-1]
     try:
         app.engine.mark_ready()
-        info = {"before": answer()}
-        try:
-            app.rolling_swap(checkpoint_path=new_ckpt)
-            info["refused"] = None
-        except RuntimeError as e:
-            info["refused"] = str(e)
+        info = {"before": answer(), "bad_key": bad_key,
+                "tree_bytes": sum(np.asarray(v).nbytes
+                                  for v in trees["new"].values())}
         # another question: the same one would be the result cache's hit
+        info["refused"] = refused(checkpoint_path=new_ckpt)
         info["after_refused"] = answer(REFUSED_QUESTION)
+        info["refused_tree"] = refused(params=trees["new"])
+        info["after_refused_tree"] = answer(REFUSED_QUESTION)
+        info["bad_shape"] = refused(params=bad)
+        info["after_bad_shape"] = answer(REFUSED_QUESTION)
         info["gen_after_refused"] = app.model_gen
-        box: dict = {}
-        swap = threading.Thread(target=lambda: box.update(
-            report=app.rolling_swap(checkpoint_path=new_ckpt)))
-        swap.start()
-        info["during"] = answer("what is on the table")
-        swap.join()
-        info["report"] = box["report"]
+        info["report"], info["during"] = swap_during_a_job(
+            checkpoint_path=new_ckpt)
         info["after"] = answer()
         info["last_swap"] = app.boot_info.get("last_swap")
+        info["tree_old_report"] = app.rolling_swap(params=trees["old"])
+        info["tree_old"] = answer()
+        info["tree_report"], info["during_tree"] = swap_during_a_job(
+            params=trees["new"])
+        info["after_tree"] = answer()
+        info["last_tree_swap"] = app.boot_info.get("last_swap")
         info["answered"] = len(app.store.recent(limit=100))
-        try:
-            app.rolling_swap(params={})
-        except ValueError as e:
-            info["in_memory"] = str(e)
-        return info
     finally:
         app.stop()
+    eng = InferenceEngine(int8_cfg, mesh=_mesh(dp=1, tp=2), device="cpu")
+    try:
+        info["int8_bytes"] = eng.broadcast_params(trees["new"])
+        info["int8_mesh"] = _first_request(eng)
+    finally:
+        eng.stop_followers()
+    info["int8_one_device"] = _first_request(InferenceEngine(
+        int8_cfg, params=trees["new"], device="cpu"))
+    return info
+
+
+def _first_request(eng) -> dict:
+    """``serve_engine``'s first request on ``eng``: its binary logits and
+    decoded answer."""
+    regs = regions(2, feat_dim=eng.cfg.model.v_feature_size)
+    out, res = eng.run(eng.prepare(12, "both images contain wolves", regs))
+    return {"binary": out.vil_binary_prediction.numpy(),
+            "answers": result_key(res)}
 
 
 def idle_rank(rank: int, cfg, sd: dict, idle_s: float) -> dict:

@@ -297,6 +297,12 @@ class _Dispatch:
         return _unflatten_bundle(self.host.numpy(), self.spec)
 
 
+def _leaf_shape(v) -> tuple:
+    """A state-dict leaf's shape (an int8 pair's: its values')."""
+    return tuple((v[quant.QVALUES] if quant.is_quantized_leaf(v)
+                  else v).shape)
+
+
 def _clone_output(out: ViLBertOutput) -> ViLBertOutput:
     """A graph's static output tensors are overwritten by its next replay:
     run() hands its caller copies."""
@@ -492,39 +498,45 @@ class InferenceEngine:
         state dict is quantized first when the engine is int8, then each
         rank keeps its shard; a ``ShardedStateDict`` (``checkpoint.
         restore_params(..., mesh=)``) is this rank's already, and the
-        served heads' leaves are gathered over tp for the slabs."""
+        served heads' leaves are gathered over tp for the slabs. A tree
+        that only rank 0 of a served mesh holds goes through
+        :meth:`broadcast_params`."""
         sd, heads = self._local_state(params)
         if heads is None:
             heads = self._gathered_heads(sd)
         with self._dispatch_lock:
             self._copy_state(sd, heads)
 
-    def _local_state(self, params: Dict) -> Tuple[Dict, Optional[Dict]]:
-        """:meth:`load_params`' work on this rank alone: the state dict to
-        copy (quantized on an int8 engine; this rank's shard on a mesh) and
-        the served heads' global leaves, or None where a sharded dict's
-        heads must be gathered over tp (:meth:`_gathered_heads`)."""
-        sharded = isinstance(params, shd.ShardedStateDict)
+    def _stored(self, params: Dict) -> Dict:
+        """``params`` as tensors in the engine's storage: quantized on an
+        int8 engine (an already-quantized tree as it is); a floating engine
+        refuses a quantized tree."""
         sd = {k: quant.leaf_to(v) for k, v in params.items()}
         if self.param_quantized:
-            if sharded and any(
+            if isinstance(params, shd.ShardedStateDict) and any(
                     not quant.is_quantized_leaf(v) and v.dim() >= 2
                     and v.is_floating_point() for v in sd.values()):
                 # A shard's per-channel scales are not the matrix's.
                 raise ValueError("an int8 mesh engine takes a sharded "
                                  "state dict quantized before sharding "
                                  "(restore_params(..., dtype='int8'))")
-            sd = quant.quantize_tree(sd)
-        elif quant.tree_is_quantized(sd):
+            return quant.quantize_tree(sd)
+        if quant.tree_is_quantized(sd):
             raise ValueError("a quantized (int8) state dict needs "
                              "EngineConfig.param_dtype='int8'")
-        heads: Optional[Dict] = sd
-        if self.mesh is not None:
-            if sharded:
-                heads = None
-            else:
-                sd = shd.shard_state_dict(sd, self.mesh, self._layout)
-        return sd, heads
+        return sd
+
+    def _local_state(self, params: Dict) -> Tuple[Dict, Optional[Dict]]:
+        """:meth:`load_params`' work on this rank alone: the state dict to
+        copy (quantized on an int8 engine; this rank's shard on a mesh) and
+        the served heads' global leaves, or None where a sharded dict's
+        heads must be gathered over tp (:meth:`_gathered_heads`)."""
+        sd = self._stored(params)
+        if self.mesh is None:
+            return sd, sd
+        if isinstance(params, shd.ShardedStateDict):
+            return sd, None
+        return shd.shard_state_dict(sd, self.mesh, self._layout), sd
 
     def _gathered_heads(self, sd: Dict) -> Dict:
         """The served heads' leaves of this rank's shards, gathered over tp
@@ -538,17 +550,19 @@ class InferenceEngine:
         """Refuse, before anything is copied, a state dict whose keys or
         shapes are not the model's: ``load_state_dict`` copies the leaves
         that fit and raises after, which would leave a mix of weights."""
-        want = self.model.state_dict()
+        self._check_shapes({k: _leaf_shape(v) for k, v in sd.items()},
+                           {k: _leaf_shape(v) for k, v in
+                            self.model.state_dict().items()})
 
-        def shape(v):
-            return tuple((v[quant.QVALUES] if quant.is_quantized_leaf(v)
-                          else v).shape)
-
-        if set(sd) != set(want):
+    @staticmethod
+    def _check_shapes(got: Dict[str, tuple], want: Dict[str, tuple]
+                      ) -> None:
+        """Raise unless ``got`` has ``want``'s keys and shapes."""
+        if set(got) != set(want):
             raise ValueError(f"state dict keys differ from the model's: "
-                             f"missing {sorted(set(want) - set(sd))[:5]}, "
-                             f"unexpected {sorted(set(sd) - set(want))[:5]}")
-        bad = [k for k in want if shape(sd[k]) != shape(want[k])]
+                             f"missing {sorted(set(want) - set(got))[:5]}, "
+                             f"unexpected {sorted(set(got) - set(want))[:5]}")
+        bad = [k for k in want if tuple(got[k]) != tuple(want[k])]
         if bad:
             raise ValueError(f"shapes differ from the model's at {bad[:5]}")
 
@@ -580,13 +594,8 @@ class InferenceEngine:
 
         On a mesh rank 0 calls it, and every rank restores and loads its
         own shard: rank 0 broadcasts a load (the path and the storage
-        dtype) on the idle group, each rank restores its shard and checks
-        it against its model, and the ranks agree before any of them
-        copies. A restore that fails on any rank raises here with that
-        rank's error, and every rank keeps the weights it had. After the
-        copies the ranks agree again, so the next forward runs on the new
-        weights everywhere. A follower holds no tree rank 0 could send, so
-        an in-memory tree cannot be swapped onto a mesh."""
+        dtype) on the idle group, and each rank restores its shard and
+        checks it against its model (:meth:`_mesh_load`)."""
         from vilbert_multitask_tpu_torch.checkpoint.store import (
             restore_params,
         )
@@ -597,38 +606,103 @@ class InferenceEngine:
                 path, dtype=self.cfg.engine.param_dtype,
                 cfg=self.model_config))
             return
+        self._start_mesh_load({"source": "checkpoint",
+                               "path": os.path.abspath(path),
+                               "dtype": self.cfg.engine.param_dtype})
+
+    def broadcast_params(self, params: Dict) -> int:
+        """Rank 0 of a served mesh: load the upstream-layout state dict
+        ``params``, which only this rank holds, on every rank. Returns the
+        bytes broadcast.
+
+        The tree is put in the engine's storage here first: an int8 engine
+        quantizes a floating tree (a row shard's per-channel scale needs
+        the whole input axis), a floating engine casts each leaf to the
+        dtype its tensor holds (what the copy would do). Rank 0 broadcasts
+        a load whose request names every leaf's key, shape and dtype, and
+        the ranks check those against the model's global shapes and agree
+        before any weight moves. The leaves then travel one at a time on
+        the idle group; each rank keeps its shard of each and the served
+        heads whole (for the slabs), so no rank holds a second copy of the
+        model. Checks, agreement and copies then go as for a checkpoint
+        (:meth:`_mesh_load`)."""
+        if self.mesh is None:
+            raise RuntimeError("broadcast_params needs a mesh; load_params "
+                               "loads a tree on one device")
+        sd = self._stored(params)
+        own = self.model.state_dict()
+        tree, leaves = {}, []
+        for key, v in sd.items():
+            parts = v if quant.is_quantized_leaf(v) else {None: v}
+            if None in parts and key in own and v.is_floating_point():
+                parts = {None: v.to(own[key].dtype)}
+            parts = {p: t.detach().cpu().contiguous()
+                     for p, t in parts.items()}
+            tree[key] = parts
+            leaves.append([key, [[p, list(t.shape), str(t.dtype)[6:]]
+                                 for p, t in parts.items()]])
+        return self._start_mesh_load({"source": "tree", "leaves": leaves},
+                                     tree)[0]
+
+    def _start_mesh_load(self, job: dict, tree: Optional[Dict] = None
+                         ) -> tuple:
+        """Rank 0: send a load to every rank (:meth:`_mesh_load`)."""
         if world_axis(self.mesh).index != 0:
             raise RuntimeError("on a mesh only rank 0 starts a load; the "
                                "other ranks run follow()")
-        request = json.dumps({"path": os.path.abspath(path),
-                              "dtype": self.cfg.engine.param_dtype}).encode()
+        request = json.dumps(job).encode()
         header = torch.tensor([self._OP_LOAD, len(request), 0, 0])
         with self._dispatch_lock, torch.inference_mode(), \
                 self._stream_ctx():
-            self._mesh_exchange(header, request)
+            return self._mesh_exchange(header, (request, tree))
 
-    def _mesh_load(self, request: Optional[bytes], n: int) -> tuple:
-        """A load on every rank of a mesh (:meth:`load_checkpoint`; rank 0
-        passes the request, the others receive its ``n`` bytes). Returns
-        an empty tuple on a follower (which keeps following, on its old
-        weights if the load failed); raises on rank 0 if any rank failed."""
+    def _mesh_load(self, payload: Optional[tuple], n: int) -> tuple:
+        """A load on every rank of a mesh (rank 0 passes the payload: the
+        request and, for a tree, its host leaves; the others receive the
+        request's ``n`` bytes). Every rank passes the ``engine.load`` fault
+        site and checks what it will load against its model, and the
+        ranks agree on the idle group before any rank copies: a failure
+        anywhere leaves every rank on its weights and raises on rank 0
+        with the failed ranks' errors. A checkpoint is restored and
+        checked shard by shard before that agreement. A tree's leaf list
+        is checked against the global shapes before it, and its leaves are
+        broadcast after it; the shards are then checked and the ranks
+        agree again. After the copies they agree once more, so the next
+        forward runs on the new weights everywhere. Returns (bytes of
+        leaves broadcast,); a follower keeps following."""
         from vilbert_multitask_tpu_torch.checkpoint.store import (
             restore_params,
         )
 
+        request, tree = payload if payload is not None else (None, None)
         buf = (torch.frombuffer(bytearray(request), dtype=torch.uint8)
                if request is not None else torch.empty(n, dtype=torch.uint8))
         job = json.loads(bytes(comm.broadcast(buf, self._idle).tolist()))
-        error = None
+        what = job["path"] if job["source"] == "checkpoint" else "a tree"
+        sent, error, sd, heads = 0, None, None, None
         try:
             fault_point("engine.load")
-            sd, heads = self._local_state(restore_params(
-                job["path"], dtype=job["dtype"], cfg=self.model_config,
-                mesh=self.mesh))
-            self._check_state(sd)
+            if job["source"] == "checkpoint":
+                sd, heads = self._local_state(restore_params(
+                    job["path"], dtype=job["dtype"], cfg=self.model_config,
+                    mesh=self.mesh))
+                self._check_state(sd)
+            else:
+                self._check_shapes(
+                    {key: shape for key, parts in job["leaves"]
+                     for part, shape, _ in parts
+                     if part in (None, quant.QVALUES)},
+                    self._global_shapes())
         except Exception as e:  # noqa: BLE001 — every rank reports
             error = e
         failed = self._agree(error)
+        if failed is None and job["source"] == "tree":
+            try:
+                sd, heads, sent = self._receive_tree(job["leaves"], tree)
+                self._check_state(sd)
+            except Exception as e:  # noqa: BLE001 — every rank reports
+                error = e
+            failed = self._agree(error)
         if failed is None:
             try:
                 if heads is None:
@@ -643,9 +717,30 @@ class InferenceEngine:
         else:
             failed = "every rank keeps its weights: " + failed
         if failed is not None and world_axis(self.mesh).index == 0:
-            raise RuntimeError(f"load of {job['path']} on the mesh "
-                               f"failed; {failed}")
-        return ()
+            raise RuntimeError(f"load of {what} on the mesh failed; "
+                               f"{failed}")
+        return (sent,)
+
+    def _receive_tree(self, leaves: list, tree: Optional[Dict]) -> tuple:
+        """Every leaf of a tree load broadcast from rank 0 (whose ``tree``
+        holds them; the other ranks receive into buffers the request's
+        ``leaves`` describe) → (this rank's shard of each leaf, the served
+        heads' global leaves, the bytes broadcast). Only one global leaf is
+        held at a time."""
+        sd, heads, sent = shd.ShardedStateDict(), {}, 0
+        for key, parts in leaves:
+            got = {}
+            for part, shape, dtype in parts:
+                t = (tree[key][part] if tree is not None else
+                     torch.empty(shape, dtype=getattr(torch, dtype)))
+                got[part] = comm.broadcast(t, self._idle)
+                sent += t.numel() * t.element_size()
+            leaf = got[None] if None in got else got
+            if key.startswith(SERVED_HEADS):
+                heads[key] = leaf
+            sd[key] = shd.shard_state_dict({key: leaf}, self.mesh,
+                                           self._layout)[key]
+        return sd, heads, sent
 
     def _agree(self, error: Optional[BaseException]) -> Optional[str]:
         """Every rank's error of a mesh load, gathered on the idle group
@@ -1152,8 +1247,8 @@ class InferenceEngine:
         the host payload; the others receive them): broadcast, this
         rank's dp rows, the forward, and the bundle's rows (and, when
         kept, the output) gathered over dp. Returns (out, host bundle,
-        spec), an empty tuple after a load (:meth:`_mesh_load`, whose
-        request is the payload), or None at a stop message."""
+        spec), (bytes broadcast,) after a load (:meth:`_mesh_load`, whose
+        request and tree are the payload), or None at a stop message."""
         world = world_axis(self.mesh)
         head = header if header is not None else torch.zeros(
             4, dtype=torch.long)

@@ -44,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from vilbert_multitask_tpu_torch.obs.instruments import REGISTRY
@@ -114,6 +114,9 @@ class CostAttributor:
         self._open_order: deque = deque()
         self._max_open = int(max_open)
         self._done: deque = deque(maxlen=int(ring))
+        # The ring's records by trace id: a batch may be charged after its
+        # members' completion closed them (see charge_batch).
+        self._closed: "OrderedDict[str, JobCost]" = OrderedDict()
         self.on_finish = on_finish
         self.busy_s = 0.0          # engine ledger: full batch walls, once
         self.attributed_s = 0.0    # job ledger: per-member shares
@@ -161,6 +164,12 @@ class CostAttributor:
         a mid-batch failure's members are never charged, so the busy
         ledger (credited the FULL wall exactly once here) shows the
         difference as unbilled waste.
+
+        A streamed member's completion may close its record before the
+        dispatcher gets here (the completion stage runs on its own
+        thread); such a record is charged in the ring where it now lives,
+        so the two ledgers agree whichever thread is first. (The JAX
+        package charges open records only and loses those shares.)
         """
         batch_wall_s = max(batch_wall_s, 0.0)
         rows_total = max(int(batch_rows), 1)
@@ -170,7 +179,8 @@ class CostAttributor:
             for trace_id, rows in members:
                 rows = max(int(rows), 1)
                 charged_rows += rows
-                cost = self._open.get(trace_id)
+                cost = (self._open.get(trace_id)
+                        or self._closed.get(trace_id))
                 if cost is None:
                     continue
                 share = batch_wall_s * rows / rows_total
@@ -200,6 +210,10 @@ class CostAttributor:
             cost.verdict = verdict
             cost.finished_unix = time.time()  # wall stamp, not a duration
             self._done.append(cost)
+            self._closed.pop(trace_id, None)
+            self._closed[trace_id] = cost
+            if len(self._closed) > self._done.maxlen:
+                self._closed.popitem(last=False)
             self.finished += 1
         for stage, ms in cost.stages.items():
             COST_MS.observe(ms, stage=stage, task=cost.task or "unknown")

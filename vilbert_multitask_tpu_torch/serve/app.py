@@ -506,45 +506,45 @@ class ServeApp:
         upstream ``.bin``/``.pth`` (:func:`..checkpoint.restore_params`),
         cast to the engine's ``param_dtype``, so an int8 deployment
         re-quantizes an incoming f32 checkpoint; ``params`` an
-        upstream-layout state dict. On a mesh every rank restores its own
-        shard of ``checkpoint_path`` (``InferenceEngine.load_checkpoint``:
-        a restore that fails on any rank fails the swap and leaves every
-        rank on its old weights); an in-memory ``params`` cannot reach the
-        other ranks, which run in processes of their own."""
+        upstream-layout state dict. On a mesh every rank loads its own
+        shard: of ``checkpoint_path``, which each rank restores
+        (``InferenceEngine.load_checkpoint``), or of ``params``, which rank
+        0 broadcasts leaf by leaf (``InferenceEngine.broadcast_params``;
+        the report's ``broadcast_bytes``). A load that fails on any rank
+        fails the swap and leaves every rank on its old weights."""
+        if params is None and checkpoint_path is None:
+            raise ValueError("rolling_swap needs checkpoint_path or params")
+        name = "<in-memory>" if params is not None else checkpoint_path
         if self.engine.mesh is not None:
-            if params is not None or checkpoint_path is None:
-                raise ValueError(
-                    "rolling_swap on a mesh needs checkpoint_path: the other "
-                    "ranks are processes of their own and cannot receive an "
-                    "in-memory tree; each restores its shard from the path")
             # One replica spans the ranks. It stays ready: the load takes
             # the engine's dispatch lock, so it waits for the forward in
             # flight, and a job claimed meanwhile runs after it, on the new
             # weights. A refused load leaves it serving the old ones.
             rep = self.engine.replicas[0]
             t0 = time.perf_counter()
-            obs.record_event("rolling_swap_start", checkpoint=checkpoint_path)
-            rep.engine.load_checkpoint(checkpoint_path)
+            obs.record_event("rolling_swap_start", checkpoint=name)
+            sent = 0
+            if params is None:
+                rep.engine.load_checkpoint(checkpoint_path)
+            else:
+                sent = rep.engine.broadcast_params(params)
             rep.swaps += 1
             report = {"replicas": [{"name": rep.name, "load_s": round(
                 time.perf_counter() - t0, 3)}], "skipped": [],
-                "min_ready_seen": self.engine.ready_count()}
-            return self._swapped(report, checkpoint_path, t0)
+                "min_ready_seen": self.engine.ready_count(),
+                "broadcast_bytes": sent}
+            return self._swapped(report, name, t0)
         if params is None:
-            if checkpoint_path is None:
-                raise ValueError("rolling_swap needs checkpoint_path or "
-                                 "params")
             from vilbert_multitask_tpu_torch.checkpoint import restore_params
 
             params = restore_params(checkpoint_path,
                                     dtype=self.cfg.engine.param_dtype,
                                     cfg=self.cfg.model)
         t0 = time.perf_counter()
-        obs.record_event("rolling_swap_start",
-                         checkpoint=checkpoint_path or "<in-memory>")
+        obs.record_event("rolling_swap_start", checkpoint=name)
         report = self.engine.rolling_swap(
             lambda eng: eng.load_params(params))
-        return self._swapped(report, checkpoint_path or "<in-memory>", t0)
+        return self._swapped(report, name, t0)
 
     def _swapped(self, report: dict, checkpoint: str, t0: float) -> dict:
         """A finished swap's bookkeeping: its report, the model generation
