@@ -54,6 +54,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    card could take (``bound_ms``), and for ``int8_linear`` at the shapes
    of the two forwards the kernel's and ``F.linear``'s time with the
    weights cold in L2 (a pass over copies larger than the L2);
+   ``add_layer_norm`` (``csrc/layer_norm.cu``) at 38 x 768, 101 x 1024, 32
+   rows of each, the label pair's (1 and 32) x 2 x 2048 with grouped
+   parameters and the NLVR2 head's 16 x 2048, each in bf16 and f32, with
+   and without a residual, with bf16 parameters and as the autocast pair
+   (bf16 onto an f32 residual), and ``scaled_masked_softmax``
+   (``csrc/softmax.cu``) at the text (12 x 38 x 38) and bridge (8 x 38 x
+   101, 8 x 101 x 38) shapes at batch 1 and 32, in bf16, f32, bf16 scores
+   with an f32 bias, and with no bias: against their plain versions (f32
+   within 2e-5 x max(1, |ref|), bf16 within atol 1e-2 + rtol 1e-2), two
+   launches bit-identical, the served variant timed beside the plain
+   version, the eager composition the port ran before and the bound;
 detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
    X-152-32x8d-FPN, canvas 1344, seeded weights) on four seeded images
    (160x120 upscaled, 640x480, 1333x800, 2000x1500 downscaled): 2 ``nms``
@@ -68,8 +79,10 @@ detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
 4. main path: ``InferenceEngine(device="cuda")`` at the full serving config
    (``ViLBertConfig()`` + ``EngineConfig()``: bf16 compute, fused heads) on
    seeded random weights answers one request per decode family through
-   ``predict`` from seeded ``.npy`` feature files; the kernel launch counter
-   must rise by exactly 18 per forward; the same requests through a card-f32
+   ``predict`` from seeded ``.npy`` feature files; the kernel launch counters
+   must rise by exactly 18 ``flash_attn``, 12 ``scaled_masked_softmax`` and
+   63 ``add_layer_norm`` (64 at an even bucket: the NLVR2 head) per forward
+   (engine/graphs.py:launches_per_forward); the same requests through a card-f32
    engine and a CPU-f32 engine (plain versions) on the same weights must
    agree with it; ``run(collect_attention=True)`` returns the bridge maps
    (bridges dense, 6 kernel launches); then the p50 of ``run`` at bucket 1;
@@ -78,7 +91,9 @@ detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
    graph replay against the eager forward on the same packed rows (expected
    bit-equal; fails beyond rtol 0.1 / atol 0.05), and a ``torch.profiler``
    trace of one bucket-1 replay must hold exactly 18
-   ``flash_attn_bf16_kernel`` launches; capture time and graph-pool memory;
+   ``flash_attn_bf16_kernel``, 63 ``add_layer_norm_kernel`` and 12
+   ``scaled_masked_softmax_kernel`` launches (its kernel count and device
+   busy time reported); capture time and graph-pool memory;
 6. batched: ``run_many`` over a mixed backlog of 40 requests (VQA, GQA,
    SNLI-VE, NLVR2 pairs, retrieval over 4 images, grounding) packed by
    ``chunk_plan``, chunk by chunk against ``run()`` of each request on the
@@ -94,7 +109,9 @@ int8. the int8 storage mode's main path at full width: seed-0 weights
    within rtol 0.1 / atol 0.05 of a CPU-f32 int8 engine on the same
    quantized tree and within 0.15 / 0.15 of phase 4's bf16 engine; the
    weights' device memory against a bf16 engine's; 7 bucket graphs, each
-   replay against eager; ``run()`` p50 (graph, eager) and ``run_many``
+   replay against eager, and a profiled bucket-1 replay (its kernel count,
+   63 + 12 fused-kernel launches); ``run()`` p50 (graph, eager) and
+   ``run_many``
    rows/s of the int8 and bf16 engines in turns (bf16, int8, int8, bf16);
    how many seeded top-1 answers int8 changes; a ``rolling_swap`` of the
    f32 checkpoint re-quantizes it to the same tensors and answers; the
@@ -179,14 +196,17 @@ train. training (no kernel: the trainer's model runs dense attention, and
    ``ViLBertConfig()`` under bf16 autocast over f32 parameters, seeded
    weights, batch 8, through ``Trainer`` and ``MultiTaskSampler`` over
    synthetic vqa, tri, grounding, binary, retrieval and pretrain data for
-   30 steps: 0 ``flash_attn`` launches, every loss finite, the step time
+   30 steps: 0 ``flash_attn``, ``add_layer_norm`` and
+   ``scaled_masked_softmax`` launches (a step records gradients: the
+   plain versions), every loss finite, the step time
    (p50 of the synchronized wall per step) and rows/s, the peak of
    ``max_memory_allocated``, two snapshots kept; the newest restored into
    a fresh Trainer bit-equal to the saved state, and the next 3 steps'
    losses within ``TRAIN_RESUME_RTOL`` of the uninterrupted run's; the save
    and restore seconds; ``EvalHook``, its bf16 graph engine built on the
-   initial weights and given the trained ones (18 ``flash_attn`` launches
-   for its one forward), scoring and answering as a freshly built engine
+   initial weights and given the trained ones (18 ``flash_attn``, 64
+   ``add_layer_norm`` and 12 ``scaled_masked_softmax`` launches for its one
+   bucket-8 forward), scoring and answering as a freshly built engine
    on the trained parameters; ``python -m
    vilbert_multitask_tpu_torch.train.loop --steps 4 --batch 2 --out <dir>``
    exits 0 in its own process; and each head's loss falls on a fixed
@@ -199,8 +219,9 @@ parallel. the process mesh (parallel/): world 1 on NCCL in this process
    tensors staged through host memory (counted per run), through
    ``parallel.launch.spawn_ranks``: tp = 2 at full width in f32 (bundles
    within BUNDLE_F32 of the card's f32 engine, the same answers) and in
-   bf16 (``run()`` p50, 18 ``flash_attn`` launches per forward on each
-   rank, bundles within BUNDLE_BF16 of the card's bf16 engine); tp = 2
+   bf16 (``run()`` p50, 18 ``flash_attn``, 63 ``add_layer_norm`` and 12
+   ``scaled_masked_softmax`` launches per forward on each rank, bundles
+   within BUNDLE_BF16 of the card's bf16 engine); tp = 2
    int8 (every product shape either rank's sliced layers give
    ``int8_linear`` held against ``int8_linear_plain`` at phase 3's bf16
    tolerance and timed beside ``F.linear`` on the dequantized bf16 shard
@@ -422,9 +443,27 @@ def kernel_build_notes(_build, name: str) -> list:
                       r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
         args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
         rec["kernel"] = (m.group(1) + (f"<{','.join(args)}>" if args
-                                       else "")) if m else mangled
+                                       else "")) if m else \
+            typed_kernel_name(_build, mangled)
         out.append(rec)
     return out
+
+
+def typed_kernel_name(_build, mangled: str) -> str:
+    """``add_layer_norm_kernel<bf16,f32,f32,4>``-style names for kernels
+    templated on types (cu++filt from nvcc's directory; the mangled name
+    where it is missing)."""
+    filt = os.path.join(os.path.dirname(_build.nvcc_path()), "cu++filt")
+    if not os.path.exists(filt):
+        return mangled
+    text = subprocess.run([filt, mangled], check=True, capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    m = re.search(r"(\w+_kernel)<([^>]*)>", text)
+    if not m:
+        return mangled
+    args = [a.strip().replace("__nv_bfloat16", "bf16").replace(
+        "float", "f32") for a in m.group(2).split(",")]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def check_build_notes(notes: list) -> None:
@@ -435,7 +474,8 @@ def check_build_notes(notes: list) -> None:
         if rec.get("spill_store_bytes", 0) or rec.get("spill_load_bytes", 0):
             raise AssertionError(f"{rec['kernel']} spills: {rec}")
         sass = rec.get("sass", {})
-        if "bf16" not in rec["kernel"]:
+        if not rec["kernel"].startswith(("flash_attn_bf16",
+                                         "int8_linear_bf16")):
             continue
         need = (("HGMMA", "UTMALDG") if "wgmma" in rec["kernel"]
                 else ("HMMA", "LDGSTS"))
@@ -570,6 +610,273 @@ def check_flash_attention(torch, report: dict) -> dict:
         report[f"flash_attn_strided_err_{str(dtype)[6:]}"] = err
     return {(r["B"], r["Nq"], r["Nk"]): r for r in rows
             if r["what"] == "serving"}
+
+
+# The residual-add LayerNorm and the scaled, masked softmax (csrc/
+# layer_norm.cu, csrc/softmax.cu): XLA's fusions of the JAX forward, as
+# hand-written kernels. Their served sites in one bucket-1 forward of the
+# full config (engine/graphs.py:launches_per_forward): 36 text-width
+# LayerNorms with a residual (24 in the text layers, 12 on the bridges' text
+# side) and 1 without (the text embeddings), 25 visual-width ones with a
+# residual (12 visual layers, 12 bridge sides, the image embeddings' feat +
+# loc), the label pair's grouped one (1, 2, 2048); 12 text softmaxes.
+# (rows, width, groups, what); groups 2 is the label pair's (B, 2, W).
+LN_CASES = [(38, 768, 1, "text"), (32 * 38, 768, 1, "text, 32 rows"),
+            (101, 1024, 1, "visual"), (32 * 101, 1024, 1, "visual, 32 rows"),
+            (2, 2048, 2, "label pair"), (64, 2048, 2, "label pair, 32 rows"),
+            (16, 2048, 1, "NLVR2 head, 32 rows")]
+# (site, case index, residual, uses in one bucket-1 forward)
+LN_FORWARD_SITES = [("text + residual", 0, True, 36),
+                    ("text embeddings", 0, False, 1),
+                    ("visual + residual", 2, True, 25),
+                    ("label pair", 4, False, 1)]
+LN_VARIANTS = (  # (name, h, residual, parameters)
+    ("bf16", "bf16", "bf16", "f32"), ("bf16 alone", "bf16", None, "f32"),
+    ("bf16, bf16 params", "bf16", "bf16", "bf16"),
+    ("bf16 alone, bf16 params", "bf16", None, "bf16"),
+    ("f32", "f32", "f32", "f32"), ("f32 alone", "f32", None, "f32"),
+    ("autocast pair", "bf16", "f32", "f32"))
+# (B, H, Nq, Nk, what): the text self-attention, the bridge directions when
+# their maps are collected.
+SOFTMAX_CASES = [(b, h, nq, nk, what) for b in (1, 32)
+                 for h, nq, nk, what in ((12, 38, 38, "text"),
+                                         (8, 38, 101, "bridge t2v"),
+                                         (8, 101, 38, "bridge v2t"))]
+SOFTMAX_VARIANTS = (  # (name, scores, bias)
+    ("bf16", "bf16", "bf16"), ("f32", "f32", "f32"),
+    ("autocast pair", "bf16", "f32"), ("bf16 no bias", "bf16", None))
+LN_FLOP_PER_ELEMENT = 8  # add, sum, square and sum, subtract, scale, fma
+SOFTMAX_FLOP_PER_ELEMENT = 7  # scale, bias, max, subtract, exp, sum, divide
+
+
+def rowwise_bound(row: dict, n_bytes: int, flops: int) -> None:
+    """Least time of an elementwise/row kernel into ``row``: its bytes at
+    the HBM rate against its f32 operations on the CUDA cores."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    row.update(bound_ms=max(t_bytes, t_ops), bound_bytes_ms=t_bytes,
+               bound_ops_ms=t_ops,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_error(out, ref, dtype) -> tuple:
+    """(max abs error, share of the tolerance used): f32 within F32_TOL x
+    max(1, |ref|), bf16 within atol 1e-2 + rtol 1e-2."""
+    out, ref = out.float(), ref.float()
+    if dtype == "f32":
+        err = (out - ref).abs()
+        return (err.max().item(),
+                (err / (F32_TOL * ref.abs().clamp_min(1.0))).max().item())
+    return bf16_check(out, ref)
+
+
+def check_layer_norm(torch, report: dict) -> dict:
+    """``add_layer_norm`` against its plain version on the card at the
+    served shapes, every dtype variant, two launches bit-identical; the
+    served variant timed beside the plain version and the composition the
+    port ran before (the sum, a cast to f32, ``F.layer_norm``, a cast
+    back). Returns the timed rows by (case index, residual)."""
+    import torch.nn.functional as F
+
+    from vilbert_multitask_tpu_torch.ops import layer_norm as ln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    eps = 1e-12
+    rows_out, timed = [], {}
+    for ci, (rows, width, groups, what) in enumerate(LN_CASES):
+        shape = (rows // groups, groups, width) if groups > 1 else (rows,
+                                                                    width)
+        # Rows with their own offset and a spread of 0.5 to 4 (as the CPU
+        # tests draw them): where the spread is far below the offset, E[s²]
+        # - mean² cancels and any two summation orders of flax's formula
+        # part by more than the f32 tolerance.
+        h32 = (torch.randn(shape, generator=gen)
+               * (0.5 + 3.5 * torch.rand(shape[:-1] + (1,), generator=gen))
+               + torch.randn(shape[:-1] + (1,), generator=gen)).to(dev)
+        r32 = torch.randn(shape, generator=gen).to(dev)
+        pshape = (groups, width) if groups > 1 else (width,)
+        w32 = (1 + 0.1 * torch.randn(pshape, generator=gen)).to(dev)
+        b32 = (0.1 * torch.randn(pshape, generator=gen)).to(dev)
+        for name, th, tr, tp in LN_VARIANTS:
+            h = h32.to(types[th])
+            r = None if tr is None else r32.to(types[tr])
+            w, b = w32.to(types[tp]), b32.to(types[tp])
+            out = ln.add_layer_norm(h, r, w, b, eps)
+            again = ln.add_layer_norm(h, r, w, b, eps)
+            ref = ln.add_layer_norm_plain(h, r, w, b, eps)
+            torch.cuda.synchronize()
+            out_type = "f32" if "f32" in (th, tr) else "bf16"
+            err, used = kernel_error(out, ref, out_type)
+            row = dict(rows=rows, width=width, groups=groups, what=what,
+                       variant=name, max_abs_err=err, tol_used=used,
+                       dtype=out_type, bit_identical=torch.equal(out, again),
+                       out_dtype=str(out.dtype))
+            if out.dtype != ref.dtype or not row["bit_identical"] \
+                    or not used <= 1.0:
+                raise AssertionError(f"add_layer_norm {what} ({name}): "
+                                     f"{row}")
+            sites = [s for s in LN_FORWARD_SITES if s[1] == ci
+                     and s[2] == (r is not None)]
+            timed_variant = name in ("bf16", "bf16 alone") and (
+                sites or ci in (1, 3, 5, 6))
+            if timed_variant:
+                head = groups > 1 or width == 2048
+
+                def before():
+                    """The port's composition before the kernel (the heads
+                    ran the plain formula itself)."""
+                    s = h if r is None else h + r
+                    if head:
+                        return ln.add_layer_norm_plain(s, None, w, b, eps)
+                    return F.layer_norm(s.float(), (width,), w.float(),
+                                        b.float(), eps).to(s.dtype)
+
+                fns = dict(kernel=lambda: ln.add_layer_norm(h, r, w, b, eps),
+                           plain=lambda: ln.add_layer_norm_plain(h, r, w, b,
+                                                                 eps),
+                           composition=before)
+                for key, fn in fns.items():
+                    row[f"{key}_ms"] = device_ms(fn)
+                n = h.numel()
+                n_bytes = (h.element_size() * n * (2 if r is None else 3)
+                           + w.element_size() * w.numel() * 2)
+                rowwise_bound(row, n_bytes, LN_FLOP_PER_ELEMENT * n)
+                timed[(ci, r is not None)] = row
+                log("add_layer_norm %s (%d x %d, groups %d, %s): kernel_ms="
+                    "%.5f plain_ms=%.5f composition_ms=%.5f bound_ms=%.6f "
+                    "(%s) | err=%.3e (%.2f of tol), two launches identical"
+                    % (what, rows, width, groups, name, row["kernel_ms"],
+                       row["plain_ms"], row["composition_ms"],
+                       row["bound_ms"], row["bound_by"], err, used))
+            rows_out.append(row)
+    log(f"add_layer_norm: {len(rows_out)} cases within tolerance, each two "
+        f"launches bit-identical; worst share of tolerance "
+        f"{max(r['tol_used'] for r in rows_out):.3f}")
+    report["layer_norm_cases"] = rows_out
+    return timed
+
+
+def check_softmax(torch, report: dict) -> dict:
+    """``scaled_masked_softmax`` against its plain version on the card at
+    the text and bridge shapes, batch 1 and 32, every dtype variant, two
+    launches bit-identical; the served variant timed beside the plain
+    version and the composition the port ran before (the scale, the add,
+    a cast to f32, ``torch.softmax``, a cast back). Returns the timed rows
+    by (B, H, Nq, Nk)."""
+    from vilbert_multitask_tpu_torch.ops import softmax as sm
+    from vilbert_multitask_tpu_torch.ops.attention import (
+        _inv_sqrt,
+        mask_to_bias,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    rows_out, timed = [], {}
+    for B, H, Nq, Nk, what in SOFTMAX_CASES:
+        D = 64 if what == "text" else 128
+        s32 = (torch.randn(B, H, Nq, Nk, generator=gen) * math.sqrt(D)).to(dev)
+        mask = torch.rand(B, Nk, generator=gen) < 0.9
+        mask[:, 0] = True
+        mask = mask.to(dev)
+        for name, ts, tb in SOFTMAX_VARIANTS:
+            s = s32.to(types[ts])
+            bias = None if tb is None else mask_to_bias(mask, types[tb])
+            scale = _inv_sqrt(D, types[ts])
+            out = sm.scaled_masked_softmax(s, bias, scale)
+            again = sm.scaled_masked_softmax(s, bias, scale)
+            ref = sm.scaled_masked_softmax_plain(s, bias, scale)
+            torch.cuda.synchronize()
+            err, used = kernel_error(out, ref, ts)
+            row = dict(B=B, H=H, Nq=Nq, Nk=Nk, what=what, variant=name,
+                       max_abs_err=err, tol_used=used, dtype=ts,
+                       bit_identical=torch.equal(out, again))
+            if out.dtype != ref.dtype or not row["bit_identical"] \
+                    or not used <= 1.0:
+                raise AssertionError(f"scaled_masked_softmax {what} B={B} "
+                                     f"({name}): {row}")
+            if name == "bf16":
+                def before():
+                    x = s * scale + bias.to(s.dtype)
+                    return torch.softmax(x.float(), dim=-1).to(s.dtype)
+
+                fns = dict(
+                    kernel=lambda: sm.scaled_masked_softmax(s, bias, scale),
+                    plain=lambda: sm.scaled_masked_softmax_plain(s, bias,
+                                                                 scale),
+                    composition=before)
+                for key, fn in fns.items():
+                    row[f"{key}_ms"] = device_ms(fn)
+                n = s.numel()
+                n_bytes = 2 * s.element_size() * n + bias.element_size() * B * Nk
+                rowwise_bound(row, n_bytes, SOFTMAX_FLOP_PER_ELEMENT * n)
+                timed[(B, H, Nq, Nk)] = row
+                log("scaled_masked_softmax %s B=%d (%d x %d x %d, %s): "
+                    "kernel_ms=%.5f plain_ms=%.5f composition_ms=%.5f "
+                    "bound_ms=%.6f (%s) | err=%.3e (%.2f of tol), two "
+                    "launches identical" % (
+                        what, B, H, Nq, Nk, name, row["kernel_ms"],
+                        row["plain_ms"], row["composition_ms"],
+                        row["bound_ms"], row["bound_by"], err, used))
+            rows_out.append(row)
+    log(f"scaled_masked_softmax: {len(rows_out)} cases within tolerance, "
+        f"each two launches bit-identical; worst share of tolerance "
+        f"{max(r['tol_used'] for r in rows_out):.3f}")
+    report["softmax_cases"] = rows_out
+    return timed
+
+
+def fused_wrappers():
+    """The wrappers of the two kernels that stand for XLA's fusions."""
+    from vilbert_multitask_tpu_torch.ops.layer_norm import add_layer_norm
+    from vilbert_multitask_tpu_torch.ops.softmax import scaled_masked_softmax
+
+    return add_layer_norm, scaled_masked_softmax
+
+
+def zero_fused() -> None:
+    for w in fused_wrappers():
+        w.launches = 0
+
+
+def fused_counts() -> dict:
+    return {w.__name__: w.launches for w in fused_wrappers()}
+
+
+def fused_want(mcfg, buckets, **kw) -> dict:
+    """The two kernels' launches over one forward at each of ``buckets``
+    (engine/graphs.py:launches_per_forward)."""
+    from vilbert_multitask_tpu_torch.engine.graphs import (
+        launches_per_forward,
+    )
+
+    total = dict.fromkeys(("add_layer_norm", "scaled_masked_softmax"), 0)
+    for b in buckets:
+        per = launches_per_forward(mcfg, b, **kw)
+        for k in total:
+            total[k] += per[k]
+    return total
+
+
+def check_fused(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: add_layer_norm / scaled_masked_"
+                             f"softmax launches {got}, want {want}")
+
+
+def chunk_buckets(eng, calls) -> list:
+    """The row bucket of every forward the recorded run_many calls
+    dispatched."""
+    out = []
+    for c in calls:
+        counts = [r.n_images for r in c["reqs"]]
+        for chunk in c["engine"].chunk_plan(
+                counts, chunk_rows=c["kw"].get("chunk_rows")):
+            out.append(eng.cfg.engine.row_bucket_for(
+                sum(counts[i] for i in chunk)))
+    return out
 
 
 def _boxes_in(torch, gen, shape, w=1333.0, h=800.0, lo=8.0, hi=400.0):
@@ -1770,26 +2077,38 @@ def main_path(torch, report: dict, root: str):
     log(f"main path: bf16 engine on {eng.device} in "
         f"{time.perf_counter() - t0:.1f}s")
 
-    # The main path, through predict(): the launch counter is zeroed
+    # The main path, through predict(): the launch counters are zeroed
     # just before each request and read just after it.
     total = 0
+    fused_total = dict.fromkeys(("add_layer_norm", "scaled_masked_softmax"),
+                                0)
     for task_id, question, keys in REQUESTS:
         spec = TASK_REGISTRY[task_id]
+        bucket = cfg.engine.bucket_for(len(keys)) if len(keys) > 1 else 1
         flash_cross_attention.launches = 0
+        zero_fused()
         result = eng.predict(task_id, question, keys)
         torch.cuda.synchronize()
         n = flash_cross_attention.launches
+        fused = fused_counts()
         total += n
+        for k in fused_total:
+            fused_total[k] += fused[k]
         check_result(spec, result, len(keys))
         log(f"predict task {task_id} ({spec.name}, {len(keys)} image(s)):"
-            f" {n} flash_attn launches -> {json.dumps(result.to_json())[:160]}")
+            f" {n} flash_attn, {fused['add_layer_norm']} add_layer_norm, "
+            f"{fused['scaled_masked_softmax']} scaled_masked_softmax "
+            f"launches -> {json.dumps(result.to_json())[:160]}")
         if n != LAUNCHES_PER_FORWARD:
             raise AssertionError(
                 f"task {task_id}: {n} kernel launches, expected "
                 f"{LAUNCHES_PER_FORWARD} per forward")
+        check_fused(fused, fused_want(cfg.model, [bucket]),
+                    f"predict task {task_id} (bucket {bucket})")
         results[task_id] = result.to_json()
     report["main_path_results"] = results
     report["main_path_launches"] = total
+    report["main_path_fused_launches"] = fused_total
 
     # The same requests and weights: card-f32 and CPU-f32 engines.
     f32 = dataclasses.replace(cfg, engine=dataclasses.replace(
@@ -1825,10 +2144,14 @@ def main_path(torch, report: dict, root: str):
     # launch the kernel; the maps match the CPU-f32 engine's.
     task_id, question, keys = REQUESTS[0]
     flash_cross_attention.launches = 0
+    zero_fused()
     out = eng.run(eng.prepare_from_store(task_id, question, keys),
                   collect_attention=True)[0]
     torch.cuda.synchronize()
     n_attn = flash_cross_attention.launches
+    check_fused(fused_counts(), fused_want(cfg.model, [1],
+                                           collect_attention=True),
+                "collect_attention run")
     ref = cpu32.run(cpu32.prepare_from_store(task_id, question, keys),
                     collect_attention=True)[0]
     worst_maps = 0.0
@@ -1839,13 +2162,15 @@ def main_path(torch, report: dict, root: str):
                 raise AssertionError("attention rows do not sum to 1")
             worst_maps = max(worst_maps, (g - r).abs().max().item())
     log(f"collect_attention: {len(out.attn_data_list)} bridge map pairs, "
-        f"{n_attn} flash_attn launches, max abs err vs CPU f32 "
+        f"{n_attn} flash_attn launches, {fused_counts()} (the bridges' "
+        f"softmax on the kernel), max abs err vs CPU f32 "
         f"{worst_maps:.3e} (atol 0.05)")
     if (len(out.attn_data_list) != cfg.model.num_connection_layers
             or n_attn != cfg.model.v_num_hidden_layers
             or not worst_maps <= BUNDLE_BF16["atol"]):
         raise AssertionError("collect_attention run is off")
     report["collect_attention"] = {"launches": n_attn,
+                                   "fused_launches": fused_counts(),
                                    "max_abs_err": worst_maps}
     del eng32, cpu32
 
@@ -1886,10 +2211,9 @@ def graph_rows(n: int) -> list:
 
 def check_graphs(torch, report: dict, eng) -> None:
     """Capture every row bucket, then per bucket: graph replay against the
-    eager forward on the same packed rows; 18 kernel launches in a
-    profiled bucket-1 replay."""
-    from torch.profiler import ProfilerActivity, profile
-
+    eager forward on the same packed rows; in a profiled bucket-1 replay,
+    18 ``flash_attn``, 63 ``add_layer_norm`` and 12
+    ``scaled_masked_softmax`` launches."""
     from vilbert_multitask_tpu_torch.engine import graphs
     from vilbert_multitask_tpu_torch.ops.coattention import (
         flash_cross_attention,
@@ -1931,30 +2255,63 @@ def check_graphs(torch, report: dict, eng) -> None:
         log(f"graphs: bucket {b}: replay vs eager max abs diff {diff:.3e}"
             f" ({'bit-equal' if diff == 0.0 else 'within rtol 0.1 / atol 0.05'})")
     # One profiled bucket-1 replay: the kernels the graph launched.
-    g = eng._graphs[1]
-    torch.cuda.synchronize()
     flash_cross_attention.launches = 0
+    zero_fused()
+    traced = profiled_replay(torch, eng, 1)
+    counted = flash_cross_attention.launches
+    log(f"graphs: profiled bucket-1 replay: {traced['kernels']} kernels on "
+        f"the card, device busy {traced['busy_ms']:.4f} ms; by kernel "
+        f"{traced['launches']}, ms {traced['ms']}; counters flash_attn "
+        f"+{counted}, {fused_counts()}")
+    flash = traced["launches"]["flash_attn_bf16_kernel"]
+    if flash != LAUNCHES_PER_FORWARD or counted != LAUNCHES_PER_FORWARD:
+        raise AssertionError(
+            f"bucket-1 replay: {flash} flash_attn_bf16_kernel launches "
+            f"in the trace, counter +{counted}; want {LAUNCHES_PER_FORWARD}")
+    want = fused_want(eng.model_config, [1])
+    check_fused(fused_counts(), want, "bucket-1 replay, counters")
+    check_fused({"add_layer_norm": traced["launches"]["add_layer_norm_kernel"],
+                 "scaled_masked_softmax": traced["launches"][
+                     "scaled_masked_softmax_kernel"]}, want,
+                "bucket-1 replay, trace")
+    report["graphs"] = {
+        "buckets": rows, "capture_s": capture_s, "pool_bytes": pool,
+        "replay_kernels_bucket1": traced["kernels"],
+        "replay_busy_ms_bucket1": traced["busy_ms"],
+        "replay_flash_launches_bucket1": flash,
+        "replay_flash_device_ms_bucket1":
+            traced["ms"]["flash_attn_bf16_kernel"],
+        "replay_launches_bucket1": traced["launches"],
+        "replay_device_ms_bucket1": traced["ms"]}
+
+
+# Kernels of the port named in a profiled replay (substrings of the
+# kernels' names in the trace).
+TRACED_KERNELS = ("flash_attn_bf16_kernel", "add_layer_norm_kernel",
+                  "scaled_masked_softmax_kernel", "int8_linear")
+
+
+def profiled_replay(torch, eng, bucket: int) -> dict:
+    """One replay of ``eng``'s bucket graph under ``torch.profiler``: the
+    kernels on the card, their summed device time, and the launches and
+    device ms of each of the port's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = eng._graphs[bucket]
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with torch.cuda.stream(eng._stream):
             g.replay()
         torch.cuda.synchronize()
-    counted = flash_cross_attention.launches
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    flash = [e for e in kernels if "flash_attn_bf16_kernel" in e.name]
-    log(f"graphs: profiled bucket-1 replay: {len(kernels)} kernels on the "
-        f"card, {len(flash)} flash_attn_bf16_kernel, counter +{counted}")
-    if len(flash) != LAUNCHES_PER_FORWARD or counted != LAUNCHES_PER_FORWARD:
-        raise AssertionError(
-            f"bucket-1 replay: {len(flash)} flash_attn_bf16_kernel launches "
-            f"in the trace, counter +{counted}; want {LAUNCHES_PER_FORWARD}")
-    report["graphs"] = {
-        "buckets": rows, "capture_s": capture_s, "pool_bytes": pool,
-        "replay_kernels_bucket1": len(kernels),
-        "replay_flash_launches_bucket1": len(flash),
-        "replay_flash_device_ms_bucket1":
-            sum(e.time_range.elapsed_us() for e in flash) / 1e3}
+    by = {k: [e for e in kernels if k in e.name] for k in TRACED_KERNELS}
+    return {"kernels": len(kernels),
+            "busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            "launches": {k: len(v) for k, v in by.items()},
+            "ms": {k: sum(e.time_range.elapsed_us() for e in v) / 1e3
+                   for k, v in by.items()}}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2007,11 +2364,18 @@ def check_batched(torch, report: dict, eng) -> int:
     # The main path of this phase: the backlog through run_many.
     hits0 = eng.input_cache_stats["hits"]
     flash_cross_attention.launches = 0
+    zero_fused()
     streamed = []
     results = eng.run_many(reqs, on_result=lambda pos, res:
                            streamed.append(pos))
     torch.cuda.synchronize()
     launches = flash_cross_attention.launches
+    fused = fused_counts()
+    counts = [r.n_images for r in reqs]
+    check_fused(fused, fused_want(eng.model_config, [
+        eng.cfg.engine.row_bucket_for(sum(counts[i] for i in chunk))
+        for chunk in plan]), f"run_many over {len(plan)} chunks")
+    report["batched_fused_launches"] = fused
     hits = eng.input_cache_stats["hits"] - hits0
     if sorted(streamed) != list(range(len(reqs))) or launches != \
             LAUNCHES_PER_FORWARD * len(plan):
@@ -2235,25 +2599,32 @@ def check_int8(torch, report: dict, eng, root: str, state: str):
 
     # The main path of this slice: predict() on the int8 engine, the
     # counts zeroed just before each request and read just after.
-    launches = {"int8_linear": 0, "flash_attn": 0}
+    launches = {"int8_linear": 0, "flash_attn": 0, "add_layer_norm": 0,
+                "scaled_masked_softmax": 0}
     for task_id, question, keys in REQUESTS:
         spec = TASK_REGISTRY[task_id]
         bucket = cfg.engine.bucket_for(len(keys)) if len(keys) > 1 else 1
         want = int8_launches_per_forward(cfg.model, bucket)
         int8_linear.launches = flash_cross_attention.launches = 0
+        zero_fused()
         result = eng8.predict(task_id, question, keys)
         torch.cuda.synchronize()
         n8, nf = int8_linear.launches, flash_cross_attention.launches
+        fused = fused_counts()
         launches["int8_linear"] += n8
         launches["flash_attn"] += nf
+        for k, v in fused.items():
+            launches[k] += v
         check_result(spec, result, len(keys))
         log(f"int8 predict task {task_id} ({spec.name}, bucket {bucket}): "
-            f"{n8} int8_linear + {nf} flash_attn launches -> "
+            f"{n8} int8_linear + {nf} flash_attn + {fused} launches -> "
             f"{json.dumps(result.to_json())[:120]}")
         if n8 != want or nf != LAUNCHES_PER_FORWARD:
             raise AssertionError(
                 f"int8 task {task_id}: {n8} int8_linear launches (want "
                 f"{want}), {nf} flash_attn (want {LAUNCHES_PER_FORWARD})")
+        check_fused(fused, fused_want(cfg.model, [bucket]),
+                    f"int8 predict task {task_id} (bucket {bucket})")
 
     # Bundles: against a CPU-f32 int8 engine on the same quantized tree,
     # and against phase 4's bf16 engine.
@@ -2307,6 +2678,18 @@ def check_int8(torch, report: dict, eng, root: str, state: str):
         "replay vs eager max abs diff " + ", ".join(
             f"b{b} {r['max_abs_diff']:.3e}" for b, r in replay.items())
         + f"; launches per bucket-1 replay {replay[1]['launches_per_replay']}")
+    zero_fused()
+    traced8 = profiled_replay(torch, eng8, 1)
+    log(f"int8 graphs: profiled bucket-1 replay: {traced8['kernels']} "
+        f"kernels on the card, device busy {traced8['busy_ms']:.4f} ms; by "
+        f"kernel {traced8['launches']}, ms {traced8['ms']}")
+    want = fused_want(cfg.model, [1])
+    check_fused(fused_counts(), want, "int8 bucket-1 replay, counters")
+    check_fused({"add_layer_norm": traced8["launches"][
+                    "add_layer_norm_kernel"],
+                 "scaled_masked_softmax": traced8["launches"][
+                     "scaled_masked_softmax_kernel"]}, want,
+                "int8 bucket-1 replay, trace")
 
     # run() and run_many, int8 and bf16 in turns (host-bound walls move
     # between calls): bf16, int8, int8, bf16.
@@ -2368,7 +2751,11 @@ def check_int8(torch, report: dict, eng, root: str, state: str):
         "memory": memory,
         "bundle_max_abs_err": {k: v[0] for k, v in worst.items()},
         "bundle_tol_used": {k: v[1] for k, v in worst.items()},
-        "graphs": {"capture_s": capture_s, "buckets": replay},
+        "graphs": {"capture_s": capture_s, "buckets": replay,
+                   "replay_kernels_bucket1": traced8["kernels"],
+                   "replay_busy_ms_bucket1": traced8["busy_ms"],
+                   "replay_launches_bucket1": traced8["launches"],
+                   "replay_device_ms_bucket1": traced8["ms"]},
         "turns": turns, "top1_changed_vs_bf16": changed,
         "top1_compared": len(res8), "swap_s": swap["total_s"]}
     del eng8
@@ -2998,12 +3385,14 @@ def check_train(torch, report: dict, root: str, state: str) -> dict:
 
     trainer._save = timed_save
     flash_cross_attention.launches = 0
+    zero_fused()
     trainer.train()
     torch.cuda.synchronize()
     flash_train = flash_cross_attention.launches
-    if flash_train != 0:
+    fused_train = fused_counts()
+    if flash_train != 0 or any(fused_train.values()):
         raise AssertionError(f"training launched flash_attn {flash_train} "
-                             f"times")
+                             f"times, {fused_train}")
     peak = torch.cuda.max_memory_allocated() - base
     if len(logs) != TRAIN_STEPS or not all(
             math.isfinite(v) for m in logs for k, v in m.items()
@@ -3015,7 +3404,8 @@ def check_train(torch, report: dict, root: str, state: str) -> dict:
                step_ms_p50=1e3 * p50, step_ms=[1e3 * t for t in times],
                rows_per_s=TRAIN_BATCH / p50, peak_bytes=peak,
                heads_seen=sorted({m["head"] for m in logs}),
-               flash_launches_train=flash_train, save_s=saves)
+               flash_launches_train=flash_train,
+               fused_launches_train=fused_train, save_s=saves)
     log(f"train: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (heads "
         f"{out['heads_seen']}), step p50 {1e3 * p50:.2f} ms "
         f"({TRAIN_BATCH / p50:.1f} rows/s), first steps "
@@ -3067,14 +3457,18 @@ def check_train(torch, report: dict, root: str, state: str) -> dict:
     # as a fresh engine on those parameters does, and no longer as on the
     # initial ones.
     flash_cross_attention.launches = 0
+    zero_fused()
     t0 = time.perf_counter()
     scores = hook(trainer.state.step, trainer.state)
     torch.cuda.synchronize()
     hook_s = time.perf_counter() - t0
     flash_eval = flash_cross_attention.launches
+    fused_eval = fused_counts()
     if flash_eval != LAUNCHES_PER_FORWARD:  # 8 rows: one bucket-8 forward
         raise AssertionError(f"EvalHook: {flash_eval} flash_attn launches "
                              f"for one forward")
+    check_fused(fused_eval, fused_want(hook._engine.model_config, [8]),
+                "EvalHook's bucket-8 forward")
     after = _eval_bundle(hook._engine, tasks["vqa"])
     eng = InferenceEngine(cfg, params={
         k: v.detach() for k, v in trainer.state.state_dict().items()},
@@ -3097,6 +3491,7 @@ def check_train(torch, report: dict, root: str, state: str) -> dict:
                              f"weights (moved {d_moved})")
     del eng, hook
     out.update(eval_scores=scores, eval_flash_launches=flash_eval,
+               eval_fused_launches=fused_eval,
                eval_hook_build_s=hook_build_s, eval_hook_s=hook_s,
                eval_bundle_vs_fresh=d_fresh, eval_bundle_moved=d_moved)
     log(f"train: EvalHook {scores} (engine built and captured on the "
@@ -3654,11 +4049,13 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
 
     flash_cross_attention.launches = 0
     nm.nms_mask.launches = dm.roi_align.launches = 0
+    zero_fused()
     try:
         t_solo = time.perf_counter()
         solo_latency = one_at_a_time(ids["solo"])
         solo_s = time.perf_counter() - t_solo
         solo_launches = flash_cross_attention.launches
+        solo_fused = fused_counts()
         # Novel uploads, one at a time: the detector runs once for each...
         torch.cuda.synchronize()
         det0 = (nm.nms_mask.launches, dm.roi_align.launches)
@@ -3679,6 +4076,7 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
         drain(lambda: True, 1.0, grace_s=0.5)  # any duplicate, any submit
         torch.cuda.synchronize()
         launches = flash_cross_attention.launches
+        served_fused = fused_counts()
         posted = check_scale_out(report, app, eng, calls, post, drain,
                                  frames, ids["load"], ids["novel_scale"],
                                  extractions)
@@ -3780,6 +4178,21 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
         raise AssertionError(f"served path: {launches} kernel launches "
                              f"({solo_launches} for {len(solo)} solo "
                              f"submits)")
+    # Each solo submit is one forward at its own row bucket; over the whole
+    # window, a softmax launch per text layer of each forward and 63 or 64
+    # LayerNorms (an odd or even bucket) a forward.
+    check_fused(solo_fused, fused_want(eng.model_config, [
+        eng.cfg.engine.row_bucket_for(len(jobs[i][2])) for i in ids["solo"]]),
+        "served solo submits")
+    forwards = launches // LAUNCHES_PER_FORWARD
+    per = fused_want(eng.model_config, [1])
+    if (served_fused["scaled_masked_softmax"]
+            != per["scaled_masked_softmax"] * forwards
+            or not per["add_layer_norm"] * forwards
+            <= served_fused["add_layer_norm"]
+            <= (per["add_layer_norm"] + 1) * forwards):
+        raise AssertionError(f"served path: {served_fused} for {forwards} "
+                             f"forwards")
     if stop_s > 30.0 or any(t.name == "serve-worker"
                             for t in threading.enumerate()):
         raise AssertionError(f"ServeApp.stop took {stop_s:.1f}s or left "
@@ -3820,6 +4233,7 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
         f"ok={health.get('ok')}")
     report["served"] = {
         "submits": len(sent), "launches": launches,
+        "fused_launches": served_fused, "solo_fused_launches": solo_fused,
         "solo": {"submits": len(solo), "forwards": solo_forwards,
                  "seconds": solo_s},
         "burst": {"submits": len(burst), "forwards": burst_forwards,
@@ -4156,6 +4570,7 @@ def check_faults(torch, report: dict, app) -> int:
 
     out: dict = {}
     flash_cross_attention.launches = 0
+    zero_fused()
     # 1. the chaos burst
     led, n0 = ledger(), len(calls)
     plan = install_plan(FaultPlan(FAULT_SEED, [
@@ -4345,6 +4760,7 @@ def check_faults(torch, report: dict, app) -> int:
                          "wall_s": time.perf_counter() - t0}
     torch.cuda.synchronize()
     launches = flash_cross_attention.launches
+    fused = fused_counts()
     t_traffic = time.perf_counter() - t_phase
     # Stored rows: at most one per submit.
     rows: dict = {}
@@ -4375,6 +4791,9 @@ def check_faults(torch, report: dict, app) -> int:
         raise AssertionError(f"faults: {launches} flash_attn launches for "
                              f"{forwards} forwards, batches by replica "
                              f"{by_engine}")
+    fused_forwards = fused_want(engines["r0"].model_config,
+                                chunk_buckets(engines["r0"], phase_calls))
+    check_fused(fused, fused_forwards, f"faults: {forwards} forwards")
     # Replays, each batch on the weights it was served with: the seed-2
     # epoch now, then the phase's own weights restored (r1 is dead in the
     # pool, so the swap skips it and it is loaded directly).
@@ -4396,7 +4815,7 @@ def check_faults(torch, report: dict, app) -> int:
         e.__dict__.pop("load_params", None)
     if replayed != sum(len(c["reqs"]) for c in phase_calls):
         raise AssertionError(f"faults: {replayed} results replayed")
-    out.update(launches=launches, forwards=forwards,
+    out.update(launches=launches, forwards=forwards, fused_launches=fused,
                batches_by_replica=by_engine, replayed_identical=replayed,
                batches_by_weights={"phase": len(epochs[0]),
                                    "seed2": len(epochs[1])},
@@ -4694,6 +5113,7 @@ def _serve_session(eng, rank: int, fn):
     from vilbert_multitask_tpu_torch.parallel.ring import ring_self_attention
 
     flash_cross_attention.launches = int8_linear.launches = 0
+    zero_fused()
     ring_self_attention.calls = 0
     out = None
     if rank == 0:
@@ -4705,7 +5125,7 @@ def _serve_session(eng, rank: int, fn):
         eng.follow()
     return out, {"flash_attn": flash_cross_attention.launches,
                  "int8_linear": int8_linear.launches,
-                 "ring_calls": ring_self_attention.calls}
+                 "ring_calls": ring_self_attention.calls, **fused_counts()}
 
 
 def _bundles(eng, requests) -> dict:
@@ -5370,6 +5790,16 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
             raise AssertionError(f"tp=2 bf16: flash_attn launches per "
                                  f"forward per rank {per_rank}, expected "
                                  f"{LAUNCHES_PER_FORWARD}")
+        # Every forward of the timed session is the bucket-1 request.
+        fused_per_rank = [{k: r["runs"]["tp2_bf16"]["counts"][k]
+                           / timed["forwards"] for k in
+                           ("add_layer_norm", "scaled_masked_softmax")}
+                          for r in ranks_out]
+        res["tp2_bf16"]["fused_launches_per_forward_by_rank"] = \
+            fused_per_rank
+        for got in fused_per_rank:
+            check_fused(got, fused_want(model, [1]),
+                        "tp=2 bf16, per forward on a rank")
         err8, used8, _, differ8 = _same_answers(
             runs["tp2_int8"]["result"], want_int8, BUNDLE_BF16, "tp=2 int8",
             exact_answers=False)
@@ -5440,7 +5870,8 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
         rep[backend] = res
         if backend == "gloo":
             tp_launches = {"flash_attn": per_rank[0],
-                           "int8_linear": int8_per_rank[0]}
+                           "int8_linear": int8_per_rank[0],
+                           **fused_per_rank[0]}
 
     # tp = 3 at full width: three ranks on this card, the visual and
     # bridge attentions whole on each (8 heads do not divide by 3).
@@ -5457,6 +5888,10 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
         "wall_s": time.perf_counter() - t0, "max_abs_err": err3,
         "tol_used": used3, "answers_differ": differ3,
         "flash_launches_per_forward_by_rank": per_rank3,
+        "fused_launches_by_rank": [
+            {k: r["counts"][k] for k in ("add_layer_norm",
+                                         "scaled_masked_softmax")}
+            for r in tp3],
         "heads_by_rank": [r["heads"] for r in tp3],
         "weight_mib_by_rank": [r["weight_mib"] for r in tp3],
         "staged": [r["staged"] for r in tp3],
@@ -5690,6 +6125,8 @@ def main() -> int:
         check_build_notes(notes)
     # 3. kernels against their plain versions
     by_shape = check_flash_attention(torch, report)
+    ln_rows = check_layer_norm(torch, report)
+    softmax_rows = check_softmax(torch, report)
     nms_rows = check_nms(torch, report)
     roi_row = check_roi_align(torch, report)
     int8_rows = check_int8_linear(torch, report, ViLBertConfig())
@@ -5873,6 +6310,77 @@ def main() -> int:
                 "tp2_int8"]["bucket1_trunk_forward"],
         },
     })
+    # The two kernels that stand for XLA's fusions: per-site numbers summed
+    # over one bucket-1 forward (LN_FORWARD_SITES; 12 text softmaxes).
+    def ln_forward(key: str) -> float:
+        return sum(n * ln_rows[(ci, res)][key]
+                   for _, ci, res, n in LN_FORWARD_SITES)
+
+    def sm_forward(key: str) -> float:
+        return 12 * softmax_rows[(1, 12, 38, 38)][key]
+
+    def by_path(name: str) -> dict:
+        trace = name + "_kernel"
+        return {
+            "predict": report["main_path_fused_launches"][name],
+            "run_many": report["batched_fused_launches"][name],
+            "served": report["served"]["fused_launches"][name],
+            "per_graph_replay": report["graphs"]["replay_launches_bucket1"][
+                trace],
+            "int8_predict": int8_launches[name],
+            "int8_per_graph_replay": report["int8"]["graphs"][
+                "replay_launches_bucket1"][trace],
+            "train_steps": report["train"]["fused_launches_train"][name],
+            "eval_hook_forward": report["train"]["eval_fused_launches"][name],
+            "tp_rank_forward": tp_launches[name],
+            "faults": report["faults"]["fused_launches"][name]}
+
+    for name, source, replaces, rows, forward, cases, per in (
+            ("add_layer_norm", "layer_norm.cu",
+             "vilbert_multitask_tpu/models/layers.py:44 (XLA's fusion of "
+             "nn.LayerNorm(dtype)(x + residual): layers.py:44-50, :68-76, "
+             ":185-215, models/embeddings.py:63, :98, models/heads.py:134; "
+             "no Pallas kernel)", ln_rows, ln_forward,
+             report["layer_norm_cases"],
+             "one bucket-1 forward: 63 bf16 launches (36 at 38 x 768 with a "
+             "residual, 1 without, 25 at 101 x 1024 with one, the label "
+             "pair's 1 x 2 x 2048); composition = the sum, a cast to f32, "
+             "F.layer_norm and a cast back (the heads: the plain formula)"),
+            ("scaled_masked_softmax", "softmax.cu",
+             "vilbert_multitask_tpu/ops/attention.py:49 (XLA's fusion of "
+             "the scale, the mask bias, the f32 softmax and the cast, "
+             ":49-59; no Pallas kernel)", softmax_rows, sm_forward,
+             report["softmax_cases"],
+             "one bucket-1 forward: 12 bf16 launches at 12 x 38 x 38; "
+             "composition = the scale, the bias add, a cast to f32, "
+             "torch.softmax and a cast back")):
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"vilbert_multitask_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": report["main_path_fused_launches"][name],
+            "launches_by_path": by_path(name),
+            "max_abs_err": max(r["max_abs_err"] for r in cases
+                               if r["dtype"] == "f32"),
+            "max_abs_err_bf16": max(r["max_abs_err"] for r in cases
+                                    if r["dtype"] == "bf16"),
+            "ms": forward("kernel_ms"),
+            "plain_ms": forward("plain_ms"),
+            "bound_ms": forward("bound_ms"),
+            "bound_by": ("bytes" if forward("bound_bytes_ms")
+                         >= forward("bound_ops_ms") else "operations"),
+            "library_ms": None,
+            "composition_ms": forward("composition_ms"),
+            "per": per,
+            "notes": {
+                "instantiations": report["build_notes"][source[:-3]],
+                "max_tol_used": max(r["tol_used"] for r in cases),
+                "all_bit_identical": all(r["bit_identical"] for r in cases),
+                "timed_shapes": [{k: v for k, v in r.items()
+                                  if k not in ("bit_identical",)}
+                                 for r in rows.values()]},
+        })
     report.update(kernels)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

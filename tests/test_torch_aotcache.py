@@ -43,7 +43,10 @@ from vilbert_multitask_tpu_torch.engine import AotCache, compile_fingerprint
 from vilbert_multitask_tpu_torch.engine.aotcache import default_cache_dir
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ALL = ("flash_attn", "int8_linear", "nms", "roi_align")
+ALL = ("flash_attn", "layer_norm", "softmax", "int8_linear", "nms",
+       "roi_align")
+# Every variant launches the LayerNorm and the text attentions' softmax.
+ALWAYS = ["layer_norm", "softmax"]
 
 NVCC = """#!/bin/sh
 # stand-in nvcc: --version, or "-o OUT SOURCE" built from a C stub
@@ -110,12 +113,12 @@ def _counts(names):
 
 
 @pytest.mark.parametrize("engine,live,want", [
-    ({}, False, ["flash_attn"]),
-    ({"param_dtype": "int8"}, False, ["flash_attn", "int8_linear"]),
-    ({}, True, ["flash_attn", "nms", "roi_align"]),
+    ({}, False, ["flash_attn"] + ALWAYS),
+    ({"param_dtype": "int8"}, False, ["flash_attn"] + ALWAYS + ["int8_linear"]),
+    ({}, True, ["flash_attn"] + ALWAYS + ["nms", "roi_align"]),
     ({"param_dtype": "int8"}, True, list(ALL)),
     ({"use_pallas_coattention": False, "use_pallas_self_attention": False},
-     False, []),
+     False, ALWAYS),
 ])
 def test_fingerprint_names_each_variants_libraries(toolkit, engine, live,
                                                    want):
@@ -136,16 +139,16 @@ def test_second_prewarm_hits_every_library_and_runs_no_nvcc(toolkit):
     first = cold.join()
     assert {n: r["status"] for n, r in first["libraries"].items()} == \
         dict.fromkeys(ALL, "built")
-    assert first["misses"] == 4 and first["compile_s"] > 0
-    assert _runs(toolkit) == 4
-    assert _build.COMPILE_MS.count() == compiles + 4
+    assert first["misses"] == len(ALL) and first["compile_s"] > 0
+    assert _runs(toolkit) == len(ALL)
+    assert _build.COMPILE_MS.count() == compiles + len(ALL)
     warm = AotCache(root, fp)
-    assert warm.prefetch() == 4
+    assert warm.prefetch() == len(ALL)
     second = warm.join()
     assert {n: r["status"] for n, r in second["libraries"].items()} == \
         dict.fromkeys(ALL, "hit")
     assert second["misses"] == 0 and second["compile_s"] == 0.0
-    assert _runs(toolkit) == 4  # no nvcc run
+    assert _runs(toolkit) == len(ALL)  # no nvcc run
     after = _counts(ALL)
     for n in ALL:  # one miss and one hit each
         assert after[n] == (before[n][0] + 1, before[n][1] + 1), n

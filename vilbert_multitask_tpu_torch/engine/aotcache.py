@@ -43,14 +43,17 @@ from vilbert_multitask_tpu_torch import _build
 def compile_fingerprint(cfg, *, live_extract: bool = False
                         ) -> Dict[str, Any]:
     """Everything that keys the variant's compiled code: the libraries it
-    launches (``flash_attn`` whenever the hand-written attention is
-    selected, ``int8_linear`` with int8 storage, ``nms`` and ``roi_align``
-    with live extraction), nvcc's flags, the toolkit's release line and
-    each library's file name under a cache root."""
+    launches (``layer_norm`` and ``softmax`` in every variant: every
+    forward runs the LayerNorm kernel and the text attentions' softmax;
+    ``flash_attn`` whenever the hand-written attention is selected,
+    ``int8_linear`` with int8 storage, ``nms`` and ``roi_align`` with live
+    extraction), nvcc's flags, the toolkit's release line and each
+    library's file name under a cache root."""
     ecfg = cfg.engine
     libs = []
     if ecfg.use_pallas_coattention or ecfg.use_pallas_self_attention:
         libs.append("flash_attn")
+    libs += ["layer_norm", "softmax"]
     if ecfg.param_dtype == "int8":
         libs.append("int8_linear")
     if live_extract:

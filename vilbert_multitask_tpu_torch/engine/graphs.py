@@ -11,7 +11,8 @@ host call.
 
 What is captured, for one bucket (:meth:`InferenceEngine._rows_step`):
 the gather of the request's image rows from the device row slab by a slot
-vector, the trunk (including the hand-written flash kernel's 18 launches and,
+vector, the trunk (including the hand-written flash kernel's 18 launches,
+the residual-add LayerNorm's and the text attentions' softmax kernels and,
 in the int8 storage mode, the int8 GEMM's),
 the fused heads, and the softmax/top-3 decode bundle flattened into one
 f32 tensor. The inputs are one static ``(bucket, 3·Nt + 2)`` int64 pack
@@ -55,10 +56,46 @@ import torch
 from vilbert_multitask_tpu_torch.detect.model import roi_align
 from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
 from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
+from vilbert_multitask_tpu_torch.ops.layer_norm import add_layer_norm
 from vilbert_multitask_tpu_torch.ops.nms import nms_mask
+from vilbert_multitask_tpu_torch.ops.softmax import scaled_masked_softmax
 
 # Every hand-written kernel's wrapper (each carries a ``launches`` count).
-KERNEL_WRAPPERS = (flash_cross_attention, nms_mask, roi_align, int8_linear)
+KERNEL_WRAPPERS = (flash_cross_attention, nms_mask, roi_align, int8_linear,
+                   add_layer_norm, scaled_masked_softmax)
+
+
+def launches_per_forward(mcfg, rows: int, *,
+                         collect_attention: bool = False) -> Dict[str, int]:
+    """Launches of the trunk's and heads' kernels in one served forward of
+    ``rows`` image rows with the engine's kernels on (``EngineConfig``'s
+    default ``use_pallas_*``), by kernel (the int8 storage mode adds
+    ``int8_linear``'s):
+
+    - ``flash_attn``: each self-attention whose head_dim passes the
+      ``% 128`` gate, both directions of each bridge unless its maps are
+      collected;
+    - ``scaled_masked_softmax``: every other attention (the dense path);
+    - ``add_layer_norm``: after each attention and each feed-forward (2 a
+      single-stream layer, 4 a bridge), one per embedding, the label
+      pair's grouped one, and the NLVR2 head's when ``rows`` is even.
+    """
+    def flash(hidden: int, heads: int) -> bool:
+        return (hidden // heads) % 128 == 0
+
+    bridges = len(mcfg.v_biattention_id)
+    text = flash(mcfg.hidden_size, mcfg.num_attention_heads)
+    visual = flash(mcfg.v_hidden_size, mcfg.v_num_attention_heads)
+    bridge = not collect_attention
+    n_flash = (mcfg.num_hidden_layers * text
+               + mcfg.v_num_hidden_layers * visual + 2 * bridges * bridge)
+    n_attn = (mcfg.num_hidden_layers + mcfg.v_num_hidden_layers
+              + 2 * bridges)
+    return {"flash_attn": n_flash,
+            "scaled_masked_softmax": n_attn - n_flash,
+            "add_layer_norm": (2 * mcfg.num_hidden_layers
+                               + 2 * mcfg.v_num_hidden_layers + 4 * bridges
+                               + 2 + 1 + (rows % 2 == 0))}
 
 
 @dataclasses.dataclass

@@ -13,7 +13,8 @@ mounts the directory boots with no nvcc run:
     python -m vilbert_multitask_tpu_torch.engine.prewarm \\
         --cache-dir <dir> [--dtype float32|bfloat16|int8] [--live-extract]
 
-One process covers one variant: ``--dtype int8`` adds ``int8_linear``,
+One process covers one variant: every variant builds ``flash_attn``,
+``layer_norm`` and ``softmax``; ``--dtype int8`` adds ``int8_linear``,
 ``--live-extract`` the detector's ``nms`` and ``roi_align``. It prints one
 JSON report (each library: ``hit`` or ``built``, nvcc's seconds, the
 verification's error and the fingerprint) and exits non-zero without nvcc,
@@ -90,6 +91,32 @@ def _check_roi_align(torch, dev, gen) -> float:
                 roi_align_plain(feats, boxes, strides, 7, 2))
 
 
+def _check_layer_norm(torch, dev, gen) -> float:
+    from vilbert_multitask_tpu_torch.ops.layer_norm import (
+        add_layer_norm,
+        add_layer_norm_plain,
+    )
+
+    h, r = (torch.randn(38, 768, generator=gen).to(dev) for _ in range(2))
+    w = (1 + 0.1 * torch.randn(768, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(768, generator=gen)).to(dev)
+    return _err(add_layer_norm(h, r, w, b, 1e-12),
+                add_layer_norm_plain(h, r, w, b, 1e-12))
+
+
+def _check_softmax(torch, dev, gen) -> float:
+    from vilbert_multitask_tpu_torch.ops.softmax import (
+        scaled_masked_softmax,
+        scaled_masked_softmax_plain,
+    )
+
+    s = torch.randn(1, 12, 38, 38, generator=gen).to(dev) * 8
+    bias = torch.zeros(1, 1, 1, 38, device=dev)
+    bias[..., 30:] = -10000.0
+    return _err(scaled_masked_softmax(s, bias, 0.125),
+                scaled_masked_softmax_plain(s, bias, 0.125))
+
+
 def _err(got, ref) -> float:
     """The largest |got - ref| / max(1, |ref|)."""
     return float(((got.float() - ref.float()).abs()
@@ -97,6 +124,7 @@ def _err(got, ref) -> float:
 
 
 CHECKS = {"flash_attn": _check_flash_attn,
+          "layer_norm": _check_layer_norm, "softmax": _check_softmax,
           "int8_linear": _check_int8_linear,
           "nms": _check_nms, "roi_align": _check_roi_align}
 

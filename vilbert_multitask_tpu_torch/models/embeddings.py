@@ -77,4 +77,4 @@ class ImageEmbeddings(nn.Module):
         dt = compute_dtype(self.image_embeddings)
         feat = self.image_embeddings(features.to(dt))
         loc = self.image_location_embeddings(spatials.to(dt))
-        return self.dropout(self.LayerNorm(feat + loc))
+        return self.dropout(self.LayerNorm(feat, loc))

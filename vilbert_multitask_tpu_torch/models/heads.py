@@ -11,9 +11,10 @@ their upstream keys):
 - the masked-modeling heads (``cls.predictions`` with its decoder tied to
   the word-embedding table, ``cls.imagePredictions``);
 - :func:`build_head_slabs` (:func:`build_int8_head_slabs` in the int8
-  storage mode) / :func:`fused_layer_norm`: the weights side and the
-  LayerNorm of the fused decode-head program (models/vilbert.py:
-  fused_head_output).
+  storage mode): the weights side of the fused decode-head program
+  (models/vilbert.py:fused_head_output, whose two LayerNorms, the JAX
+  package's ``fused_layer_norm``, are ``ops/layer_norm.py:layer_norm``
+  with grouped parameters).
 """
 
 from __future__ import annotations
@@ -226,22 +227,9 @@ def build_int8_head_slabs(params: Dict, cfg: ViLBertConfig,
             scale = pair[quant.QSCALE].expand(*q.shape[:-1])
             out[name] = padded_rows(q.to(device))
             out[name + "_scale"] = scale.contiguous().to(device)
-        elif name.endswith("_bias"):
+        elif name.endswith("_bias") and not name.endswith("_ln_bias"):
             out[name] = v.to(device, dtype)
-        else:
+        else:  # the LayerNorm leaves stay f32, as the JAX engine keeps them
             out[name] = v.to(device)
     return out
 
-
-def fused_layer_norm(h, scale, bias, eps: float):
-    """LayerNorm with flax ``nn.LayerNorm`` numerics: statistics in f32 (or
-    f64 for f64 input; ``var = max(0, E[x²] − E[x]²)``), scale folded into
-    the rsqrt, result cast back to the input dtype."""
-    dt = h.dtype
-    st = torch.promote_types(dt, torch.float32)
-    x = h.to(st)
-    mean = x.mean(dim=-1, keepdim=True)
-    var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean,
-                          0.0)
-    mul = torch.rsqrt(var + eps) * scale.to(st)
-    return ((x - mean) * mul + bias.to(st)).to(dt)

@@ -25,7 +25,8 @@ as ``q.astype(dt) * s.astype(dt)``, every other floating leaf cast to dt):
 - a :class:`RoundedLayerNorm` keeps its f32 parameters (they are what the
   state dict holds) and computes with them rounded to the compute dtype,
   then promoted back to f32 as flax's ``LayerNorm`` does with bf16
-  parameters (statistics and the affine step in f32).
+  parameters (statistics and the affine step in f32): on the card the
+  LayerNorm kernel reads the bf16 copies and promotes them in registers.
 
 The masked-LM decoder is tied to the word table (:class:`TiedTableDecoder`):
 its state-dict entry is that table's pair, and it is not served (no engine
@@ -34,12 +35,15 @@ forward computes the pretraining heads).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vilbert_multitask_tpu_torch import quant
 from vilbert_multitask_tpu_torch.models.layers import LayerNorm
+from vilbert_multitask_tpu_torch.ops import layer_norm as ln_ops
 from vilbert_multitask_tpu_torch.ops.int8_linear import (
     int8_linear,
     padded_width,
@@ -231,11 +235,10 @@ class RoundedLayerNorm(LayerNorm):
                 norm.normalized_shape, dtype=compute_dtype,
                 device=norm.weight.device), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = torch.promote_types(x.dtype, torch.float32)
-        return F.layer_norm(x.to(dt), self.normalized_shape,
-                            self.rounded_weight.to(dt),
-                            self.rounded_bias.to(dt), self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return ln_ops.layer_norm(x, residual, self.rounded_weight,
+                                 self.rounded_bias, self.eps)
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)

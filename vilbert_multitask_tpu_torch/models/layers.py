@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vilbert_multitask_tpu_torch.ops import layer_norm as ln_ops
 from vilbert_multitask_tpu_torch.ops.attention import (
     FusedSelfAttention,
     cross_attention,
@@ -70,17 +71,19 @@ def set_dropout_generator(model: nn.Module,
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with flax ``nn.LayerNorm(dtype=...)`` numerics: statistics
-    and the affine step run in ``promote(x.dtype, float32)`` with the
-    parameters at that precision, and the result is cast back to x's dtype.
-    The engine keeps LayerNorm parameters in f32 under a bf16 compute dtype,
-    as the JAX package does."""
+    """LayerNorm of ``x + residual`` (or of ``x``) with flax
+    ``nn.LayerNorm(dtype=...)`` numerics: the sum in the inputs' promoted
+    dtype, statistics (``var = max(0, E[s²] − E[s]²)``) and the affine
+    step at ``promote(dtype, float32)`` with the parameters at that
+    precision, the result in the sum's dtype (``ops/layer_norm.py``: one
+    kernel launch on the card for an inference call; a call autograd
+    records takes ``F.layer_norm``). The engine keeps LayerNorm parameters
+    in f32 under a bf16 compute dtype, as the JAX package does."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = torch.promote_types(x.dtype, torch.float32)
-        return F.layer_norm(x.to(dt), self.normalized_shape,
-                            self.weight.to(dt), self.bias.to(dt),
-                            self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return ln_ops.layer_norm(x, residual, self.weight, self.bias,
+                                 self.eps)
 
 
 class AttentionOutput(nn.Module):
@@ -96,7 +99,7 @@ class AttentionOutput(nn.Module):
 
     def forward(self, context: torch.Tensor, residual: torch.Tensor
                 ) -> torch.Tensor:
-        return self.LayerNorm(self.dropout(self.dense(context)) + residual)
+        return self.LayerNorm(self.dropout(self.dense(context)), residual)
 
 
 class Intermediate(nn.Module):
@@ -211,8 +214,8 @@ class BiOutput(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, v_ctx, v_residual, t_ctx, t_residual):
-        v = self.LayerNorm1(self.dropout(self.dense1(v_ctx)) + v_residual)
-        t = self.LayerNorm2(self.dropout(self.dense2(t_ctx)) + t_residual)
+        v = self.LayerNorm1(self.dropout(self.dense1(v_ctx)), v_residual)
+        t = self.LayerNorm2(self.dropout(self.dense2(t_ctx)), t_residual)
         return v, t
 
 

@@ -30,13 +30,13 @@ from vilbert_multitask_tpu_torch.models.heads import (
     Pooler,
     PretrainingHeads,
     SimpleClassifier,
-    fused_layer_norm,
 )
 from vilbert_multitask_tpu_torch.models.layers import (
     ACT,
     Dropout,
     compute_dtype,
 )
+from vilbert_multitask_tpu_torch.ops import layer_norm as ln_ops
 from vilbert_multitask_tpu_torch.ops.attention import mask_to_bias
 from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
 
@@ -233,8 +233,9 @@ def fused_head_output(cfg: ViLBertConfig, slabs: dict, trunk_out,
         h = torch.einsum("bi,kio->bko", pooled,
                          slabs["label_d1_kernel"].to(dtype))
         h = gelu(h + slabs["label_d1_bias"].to(dtype)[None])
-    h = fused_layer_norm(h, slabs["label_ln_scale"], slabs["label_ln_bias"],
-                         cfg.layer_norm_eps)
+    # The JAX heads' fused_layer_norm: row i of (B, 2, W) takes head i % 2.
+    h = ln_ops.layer_norm(h, None, slabs["label_ln_scale"],
+                          slabs["label_ln_bias"], cfg.layer_norm_eps)
     if int8:
         label_logits = int8_linear(
             h.transpose(0, 1), slabs["label_d2_kernel"],
@@ -257,8 +258,8 @@ def fused_head_output(cfg: ViLBertConfig, slabs: dict, trunk_out,
     if pooled.shape[0] % 2 == 0:
         paired = pooled.reshape(pooled.shape[0] // 2, -1)
         hb = gelu(_dense(slabs, "binary_d1", paired, dtype))
-        hb = fused_layer_norm(hb, slabs["binary_ln_scale"],
-                              slabs["binary_ln_bias"], cfg.layer_norm_eps)
+        hb = ln_ops.layer_norm(hb, None, slabs["binary_ln_scale"],
+                               slabs["binary_ln_bias"], cfg.layer_norm_eps)
         vil_binary_prediction = _dense(slabs, "binary_d2", hb, dtype)
 
     # Per-token grounding heads, mask penalty folded in as in forward().

@@ -5,7 +5,10 @@ numerics and the same kernel gates:
 
 - the additive mask bias is made in the compute dtype (``(1 - mask) *
   -10000``, so -9984 in bf16), as the JAX package makes it;
-- the dense path's softmax runs at ``promote(dtype, float32)``;
+- the dense path's scale, mask bias and softmax (at ``promote(dtype,
+  float32)``) are ``ops/softmax.py``: one kernel launch on the card for an
+  inference call, the plain torch composition for a call autograd
+  records;
 - self-attention takes the flash kernel when ``use_pallas``, there is no
   dropout and ``head_dim % 128 == 0``; a bridge direction takes it when
   ``use_pallas``, no probabilities are needed and there is no dropout.
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from vilbert_multitask_tpu_torch.ops import softmax as softmax_ops
 from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
 
 
@@ -71,12 +75,11 @@ def multi_head_attention(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense attention. Returns (context (B, Nq, H, D), probs (B, H, Nq, Nk))."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * _inv_sqrt(q.shape[-1],
-                                                             dtype)
-    if bias is not None:
-        scores = scores + bias.to(dtype)
-    softmax_dtype = torch.promote_types(scores.dtype, torch.float32)
-    probs = torch.softmax(scores.to(softmax_dtype), dim=-1).to(dtype)
+    # In ``dtype``, as the JAX einsum's preferred_element_type (no launch
+    # when q is already in it, as on every path of the model).
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(dtype)
+    probs = softmax_ops.attention_probs(scores, bias,
+                                        _inv_sqrt(q.shape[-1], dtype))
     dropped = dropout(probs, dropout_rate, training, generator)
     context = torch.einsum("bhqk,bkhd->bqhd", dropped, v)
     return context, probs
