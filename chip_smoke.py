@@ -13,12 +13,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. device: the card's name and power limit (nvidia-smi), and whether PIL
    is installed;
 2. build: every kernel of the port from ``vilbert_multitask_tpu_torch/csrc``
-   (``flash_attn``, ``int8_linear``, ``nms``, ``roi_align``), one nvcc per
-   source, all
+   (``dense_attention``, ``flash_attn``, ``int8_linear``, ``layer_norm``,
+   ``nms``, ``roi_align``, ``softmax``), one nvcc per source, all
    started together; per kernel instantiation, the registers, shared memory
    and spills ptxas reports (any spill fails) and the count of tensor-core
    (``HMMA``), async-copy (``LDGSTS``) and ``ldmatrix`` (``LDSM``)
-   instructions in its SASS (a bf16 kernel without the first two fails);
+   instructions in its SASS (a bf16 attention kernel without the first two
+   fails);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and at the edges of its tiles, widths and masks:
    ``flash_attn`` in f32 (max abs error <= 2e-5, the JAX package's own
@@ -64,7 +65,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    with an f32 bias, and with no bias: against their plain versions (f32
    within 2e-5 x max(1, |ref|), bf16 within atol 1e-2 + rtol 1e-2), two
    launches bit-identical, the served variant timed beside the plain
-   version, the eager composition the port ran before and the bound;
+   version, the eager composition the port ran before and the bound; and
+   ``dense_attention`` (``csrc/dense_attention.cu``, the text
+   self-attention's whole core) at 12, 6 and 4 heads x 38 x 38 x 64 at
+   batch 1 and 32 (the served forward, a tp = 2 and a tp = 3 rank) and at
+   the edges (head_dim 16, 48 and 128, 1 and 128 keys, 65 and 101
+   queries, Nq != Nk), with a bf16, an f32 and no bias, and on q, k, v
+   read through a fused buffer's strides: against its plain version
+   (bf16 within atol 1e-2 + rtol 1e-2), two launches bit-identical, the
+   served shapes timed beside the plain version, the composition the port
+   ran before (an einsum, the softmax's kernel, an einsum), SDPA and the
+   bound;
 detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
    X-152-32x8d-FPN, canvas 1344, seeded weights) on four seeded images
    (160x120 upscaled, 640x480, 1333x800, 2000x1500 downscaled): 2 ``nms``
@@ -80,20 +91,23 @@ detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
    (``ViLBertConfig()`` + ``EngineConfig()``: bf16 compute, fused heads) on
    seeded random weights answers one request per decode family through
    ``predict`` from seeded ``.npy`` feature files; the kernel launch counters
-   must rise by exactly 18 ``flash_attn``, 12 ``scaled_masked_softmax`` and
-   63 ``add_layer_norm`` (64 at an even bucket: the NLVR2 head) per forward
+   must rise by exactly 18 ``flash_attn``, 12 ``dense_attention``, no
+   ``scaled_masked_softmax`` and 63 ``add_layer_norm`` (64 at an even
+   bucket: the NLVR2 head) per forward
    (engine/graphs.py:launches_per_forward); the same requests through a card-f32
    engine and a CPU-f32 engine (plain versions) on the same weights must
    agree with it; ``run(collect_attention=True)`` returns the bridge maps
-   (bridges dense, 6 kernel launches); then the p50 of ``run`` at bucket 1;
+   (bridges dense: 6 flash launches, 12 ``scaled_masked_softmax``); then
+   the p50 of ``run`` at bucket 1;
 5. graphs: ``warmup()`` captures one CUDA graph per row bucket (1, 2, 4,
    8, 10, 16, 32) on the same engine; per bucket, the decode bundle of a
    graph replay against the eager forward on the same packed rows (expected
    bit-equal; fails beyond rtol 0.1 / atol 0.05), and a ``torch.profiler``
    trace of one bucket-1 replay must hold exactly 18
    ``flash_attn_bf16_kernel``, 63 ``add_layer_norm_kernel`` and 12
-   ``scaled_masked_softmax_kernel`` launches (its kernel count and device
-   busy time reported); capture time and graph-pool memory;
+   ``dense_attention_kernel`` launches and no
+   ``scaled_masked_softmax_kernel`` (its kernel count and device busy time
+   reported); capture time and graph-pool memory;
 6. batched: ``run_many`` over a mixed backlog of 40 requests (VQA, GQA,
    SNLI-VE, NLVR2 pairs, retrieval over 4 images, grounding) packed by
    ``chunk_plan``, chunk by chunk against ``run()`` of each request on the
@@ -196,16 +210,16 @@ train. training (no kernel: the trainer's model runs dense attention, and
    ``ViLBertConfig()`` under bf16 autocast over f32 parameters, seeded
    weights, batch 8, through ``Trainer`` and ``MultiTaskSampler`` over
    synthetic vqa, tri, grounding, binary, retrieval and pretrain data for
-   30 steps: 0 ``flash_attn``, ``add_layer_norm`` and
-   ``scaled_masked_softmax`` launches (a step records gradients: the
-   plain versions), every loss finite, the step time
+   30 steps: 0 ``flash_attn``, ``add_layer_norm``,
+   ``scaled_masked_softmax`` and ``dense_attention`` launches (a step
+   records gradients: the plain versions), every loss finite, the step time
    (p50 of the synchronized wall per step) and rows/s, the peak of
    ``max_memory_allocated``, two snapshots kept; the newest restored into
    a fresh Trainer bit-equal to the saved state, and the next 3 steps'
    losses within ``TRAIN_RESUME_RTOL`` of the uninterrupted run's; the save
    and restore seconds; ``EvalHook``, its bf16 graph engine built on the
    initial weights and given the trained ones (18 ``flash_attn``, 64
-   ``add_layer_norm`` and 12 ``scaled_masked_softmax`` launches for its one
+   ``add_layer_norm`` and 12 ``dense_attention`` launches for its one
    bucket-8 forward), scoring and answering as a freshly built engine
    on the trained parameters; ``python -m
    vilbert_multitask_tpu_torch.train.loop --steps 4 --batch 2 --out <dir>``
@@ -220,7 +234,7 @@ parallel. the process mesh (parallel/): world 1 on NCCL in this process
    ``parallel.launch.spawn_ranks``: tp = 2 at full width in f32 (bundles
    within BUNDLE_F32 of the card's f32 engine, the same answers) and in
    bf16 (``run()`` p50, 18 ``flash_attn``, 63 ``add_layer_norm`` and 12
-   ``scaled_masked_softmax`` launches per forward on each rank, bundles
+   ``dense_attention`` launches per forward on each rank, bundles
    within BUNDLE_BF16 of the card's bf16 engine); tp = 2
    int8 (every product shape either rank's sliced layers give
    ``int8_linear`` held against ``int8_linear_plain`` at phase 3's bf16
@@ -386,13 +400,18 @@ def device_ms(fn, *, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(B, Nq, Nk, H, D, itemsize) -> tuple:
-    """Least time for one attention call: each input read once, the output
-    written once, against 4·B·H·Nq·Nk·D FLOP at the bf16 tensor-core peak."""
+def attention_bound_parts(B, Nq, Nk, H, D, itemsize) -> tuple:
+    """(bytes ms, operations ms) of one attention call: each input read
+    once, the output written once, at the HBM rate; 4·B·H·Nq·Nk·D FLOP at
+    the bf16 tensor-core peak."""
     n_bytes = itemsize * (2 * B * Nq * H * D + 2 * B * Nk * H * D + B * Nk)
     flops = 4 * B * H * Nq * Nk * D
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+
+
+def attention_bound_ms(B, Nq, Nk, H, D, itemsize) -> tuple:
+    """Least time for one attention call, and what bounds it."""
+    t_bytes, t_ops = attention_bound_parts(B, Nq, Nk, H, D, itemsize)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -450,7 +469,7 @@ def kernel_build_notes(_build, name: str) -> list:
 
 
 def typed_kernel_name(_build, mangled: str) -> str:
-    """``add_layer_norm_kernel<bf16,f32,f32,4>``-style names for kernels
+    """``add_layer_norm_kernel<bf16,f32,f32,1>``-style names for kernels
     templated on types (cu++filt from nvcc's directory; the mangled name
     where it is missing)."""
     filt = os.path.join(os.path.dirname(_build.nvcc_path()), "cu++filt")
@@ -467,15 +486,17 @@ def typed_kernel_name(_build, mangled: str) -> str:
 
 
 def check_build_notes(notes: list) -> None:
-    """No spills anywhere; the bf16 kernels' SASS holds their tensor-core
-    and copy instructions: mma.sync (HMMA) and cp.async (LDGSTS), and for
-    the int8 wgmma kernel wgmma (HGMMA) and TMA (UTMALDG)."""
+    """No spills anywhere; the bf16 kernels' SASS (the flash kernel's, the
+    dense core's, the int8 GEMM's) holds their tensor-core and copy
+    instructions: mma.sync (HMMA) and cp.async (LDGSTS), and for the int8
+    wgmma kernel wgmma (HGMMA) and TMA (UTMALDG)."""
     for rec in notes:
         if rec.get("spill_store_bytes", 0) or rec.get("spill_load_bytes", 0):
             raise AssertionError(f"{rec['kernel']} spills: {rec}")
         sass = rec.get("sass", {})
         if not rec["kernel"].startswith(("flash_attn_bf16",
-                                         "int8_linear_bf16")):
+                                         "int8_linear_bf16",
+                                         "dense_attention")):
             continue
         need = (("HGMMA", "UTMALDG") if "wgmma" in rec["kernel"]
                 else ("HMMA", "LDGSTS"))
@@ -619,7 +640,9 @@ def check_flash_attention(torch, report: dict) -> dict:
 # LayerNorms with a residual (24 in the text layers, 12 on the bridges' text
 # side) and 1 without (the text embeddings), 25 visual-width ones with a
 # residual (12 visual layers, 12 bridge sides, the image embeddings' feat +
-# loc), the label pair's grouped one (1, 2, 2048); 12 text softmaxes.
+# loc), the label pair's grouped one (1, 2, 2048). The softmax ran in the
+# 12 text layers until the dense core's kernel took them (DENSE_CASES);
+# it runs for collected bridge maps and f32.
 # (rows, width, groups, what); groups 2 is the label pair's (B, 2, W).
 LN_CASES = [(38, 768, 1, "text"), (32 * 38, 768, 1, "text, 32 rows"),
             (101, 1024, 1, "visual"), (32 * 101, 1024, 1, "visual, 32 rows"),
@@ -636,8 +659,8 @@ LN_VARIANTS = (  # (name, h, residual, parameters)
     ("bf16 alone, bf16 params", "bf16", None, "bf16"),
     ("f32", "f32", "f32", "f32"), ("f32 alone", "f32", None, "f32"),
     ("autocast pair", "bf16", "f32", "f32"))
-# (B, H, Nq, Nk, what): the text self-attention, the bridge directions when
-# their maps are collected.
+# (B, H, Nq, Nk, what): the text self-attention (an f32 engine's), the
+# bridge directions when their maps are collected.
 SOFTMAX_CASES = [(b, h, nq, nk, what) for b in (1, 32)
                  for h, nq, nk, what in ((12, 38, 38, "text"),
                                          (8, 38, 101, "bridge t2v"),
@@ -828,12 +851,139 @@ def check_softmax(torch, report: dict) -> dict:
     return timed
 
 
+# The dense attention's core as one kernel (csrc/dense_attention.cu): (B, H,
+# Nq, Nk, D, what). The served text self-attention (12 heads of 64 over the
+# 38 tokens) and a tp = 2 and tp = 3 rank's 6 and 4 heads, at batch 1 and
+# 32, come first; then the edges of the kernel's tiles and widths.
+DENSE_CASES = [(1, 12, 38, 38, 64, "text"), (32, 12, 38, 38, 64, "text"),
+               (1, 6, 38, 38, 64, "tp=2 rank"),
+               (32, 6, 38, 38, 64, "tp=2 rank"),
+               (1, 4, 38, 38, 64, "tp=3 rank"),
+               (2, 8, 101, 101, 128, "D = 128, two query tiles"),
+               (2, 8, 38, 128, 128, "128 keys, D = 128"),
+               (3, 2, 13, 13, 16, "D = 16 (the tiny text)"),
+               (2, 2, 9, 9, 16, "the tiny visual stream"),
+               (2, 4, 65, 1, 48, "one key, D = 48, 65 queries"),
+               (1, 12, 38, 101, 64, "Nq != Nk, 7 key steps")]
+DENSE_VARIANTS = (("bf16 bias", "bf16"), ("f32 bias", "f32"),
+                  ("no bias", None))
+
+
+def check_dense_attention(torch, report: dict) -> dict:
+    """``dense_attention`` against its plain version on the card at the
+    served shapes and the edges, with a bf16, an f32 and no bias (bf16
+    within atol 1e-2 + rtol 1e-2), two launches bit-identical, and on q, k,
+    v read through the strides of a fused buffer; the served variant timed
+    beside the plain version, the composition the port ran before (an
+    einsum, the softmax's kernel, an einsum), SDPA (which the port never
+    calls) and the bound. Returns the timed rows by (B, H)."""
+    import torch.nn.functional as F
+
+    from vilbert_multitask_tpu_torch.ops import dense_attention as da
+    from vilbert_multitask_tpu_torch.ops import softmax as sm
+    from vilbert_multitask_tpu_torch.ops.attention import (
+        _inv_sqrt,
+        mask_to_bias,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    rows_out, timed = [], {}
+    for B, H, Nq, Nk, D, what in DENSE_CASES:
+        q, k, v = (torch.randn(B, n, H * D, generator=gen).to(
+            dev, torch.bfloat16).view(B, n, H, D) for n in (Nq, Nk, Nk))
+        mask = torch.rand(B, Nk, generator=gen) < 0.9
+        mask[:, 0] = True
+        mask = mask.to(dev)
+        scale = _inv_sqrt(D, torch.bfloat16)
+        for name, tb in DENSE_VARIANTS:
+            bias = None if tb is None else mask_to_bias(mask, types[tb])
+            out = da.dense_attention(q, k, v, bias, scale)
+            again = da.dense_attention(q, k, v, bias, scale)
+            ref = da.dense_attention_plain(q, k, v, bias, scale)
+            torch.cuda.synchronize()
+            err, used = kernel_error(out, ref, "bf16")
+            row = dict(B=B, H=H, Nq=Nq, Nk=Nk, D=D, what=what, variant=name,
+                       max_abs_err=err, tol_used=used, dtype="bf16",
+                       bit_identical=torch.equal(out, again))
+            if out.shape != ref.shape or not row["bit_identical"] \
+                    or not used <= 1.0:
+                raise AssertionError(f"dense_attention {what} B={B} "
+                                     f"({name}): {row}")
+            if name == "bf16 bias" and what in ("text", "tp=2 rank",
+                                                "tp=3 rank"):
+                def composition():
+                    """The port's route before the kernel: an einsum, the
+                    softmax's kernel, an einsum, the reshape."""
+                    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+                    p = sm.scaled_masked_softmax(scores, bias, scale)
+                    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(
+                        B, Nq, H * D)
+
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                fns = dict(
+                    kernel=lambda: da.dense_attention(q, k, v, bias, scale),
+                    plain=lambda: da.dense_attention_plain(q, k, v, bias,
+                                                           scale),
+                    composition=composition,
+                    library=lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=bias))
+                for key, fn in fns.items():
+                    row[f"{key}_ms"] = device_ms(fn)
+                row["bound_ms"], row["bound_by"] = attention_bound_ms(
+                    B, Nq, Nk, H, D, 2)
+                row["bound_bytes_ms"], row["bound_ops_ms"] = \
+                    attention_bound_parts(B, Nq, Nk, H, D, 2)
+                timed[(B, H)] = row
+                log("dense_attention %s B=%d (%d x %d x %d x %d): kernel_ms="
+                    "%.5f plain_ms=%.5f composition_ms=%.5f library_ms=%.5f "
+                    "(SDPA) bound_ms=%.6f (%s) | err=%.3e (%.2f of tol), two "
+                    "launches identical" % (
+                        what, B, H, Nq, Nk, D, row["kernel_ms"],
+                        row["plain_ms"], row["composition_ms"],
+                        row["library_ms"], row["bound_ms"], row["bound_by"],
+                        err, used))
+            rows_out.append(row)
+    # q, k and v as views into one fused (B, N, 3, H, D) buffer, read in
+    # place through their strides.
+    fused = torch.randn(2, 38, 3, 12, 64, generator=gen).to(
+        dev, torch.bfloat16)
+    q, k, v = (fused[:, :, i] for i in range(3))
+    mask = torch.ones(2, 38, dtype=torch.bool)
+    mask[1, 30:] = False
+    bias = mask_to_bias(mask.to(dev), torch.bfloat16)
+    got = da.dense_attention(q, k, v, bias, 0.125)
+    ref = da.dense_attention_plain(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), bias, 0.125)
+    torch.cuda.synchronize()
+    err, used = kernel_error(got, ref, "bf16")
+    log(f"dense_attention strided views (fused q, k, v): max abs err "
+        f"{err:.3e} ({used:.2f} of tol)")
+    if not used <= 1.0:
+        raise AssertionError(f"dense_attention strided views: {err:.3e}")
+    report["dense_attention_strided_err"] = err
+    log(f"dense_attention: {len(rows_out)} cases within tolerance, each two "
+        f"launches bit-identical; worst share of tolerance "
+        f"{max(r['tol_used'] for r in rows_out):.3f}")
+    report["dense_attention_cases"] = rows_out
+    return timed
+
+
+# The kernels that stand for XLA's fusions of the forward, by wrapper name
+# (each kernel's name in a trace is the wrapper's with "_kernel" after it).
+FUSED = ("add_layer_norm", "scaled_masked_softmax", "dense_attention")
+
+
 def fused_wrappers():
-    """The wrappers of the two kernels that stand for XLA's fusions."""
+    """The wrappers of the kernels that stand for XLA's fusions."""
+    from vilbert_multitask_tpu_torch.ops.dense_attention import (
+        dense_attention,
+    )
     from vilbert_multitask_tpu_torch.ops.layer_norm import add_layer_norm
     from vilbert_multitask_tpu_torch.ops.softmax import scaled_masked_softmax
 
-    return add_layer_norm, scaled_masked_softmax
+    return add_layer_norm, scaled_masked_softmax, dense_attention
 
 
 def zero_fused() -> None:
@@ -846,13 +996,13 @@ def fused_counts() -> dict:
 
 
 def fused_want(mcfg, buckets, **kw) -> dict:
-    """The two kernels' launches over one forward at each of ``buckets``
+    """The fused kernels' launches over one forward at each of ``buckets``
     (engine/graphs.py:launches_per_forward)."""
     from vilbert_multitask_tpu_torch.engine.graphs import (
         launches_per_forward,
     )
 
-    total = dict.fromkeys(("add_layer_norm", "scaled_masked_softmax"), 0)
+    total = dict.fromkeys(FUSED, 0)
     for b in buckets:
         per = launches_per_forward(mcfg, b, **kw)
         for k in total:
@@ -862,8 +1012,13 @@ def fused_want(mcfg, buckets, **kw) -> dict:
 
 def check_fused(got: dict, want: dict, what: str) -> None:
     if got != want:
-        raise AssertionError(f"{what}: add_layer_norm / scaled_masked_"
-                             f"softmax launches {got}, want {want}")
+        raise AssertionError(f"{what}: launches of {', '.join(FUSED)}: "
+                             f"{got}, want {want}")
+
+
+def traced_fused(traced: dict) -> dict:
+    """The fused kernels' launches in a profiled replay's trace."""
+    return {name: traced["launches"][name + "_kernel"] for name in FUSED}
 
 
 def chunk_buckets(eng, calls) -> list:
@@ -2080,8 +2235,7 @@ def main_path(torch, report: dict, root: str):
     # The main path, through predict(): the launch counters are zeroed
     # just before each request and read just after it.
     total = 0
-    fused_total = dict.fromkeys(("add_layer_norm", "scaled_masked_softmax"),
-                                0)
+    fused_total = dict.fromkeys(FUSED, 0)
     for task_id, question, keys in REQUESTS:
         spec = TASK_REGISTRY[task_id]
         bucket = cfg.engine.bucket_for(len(keys)) if len(keys) > 1 else 1
@@ -2096,9 +2250,8 @@ def main_path(torch, report: dict, root: str):
             fused_total[k] += fused[k]
         check_result(spec, result, len(keys))
         log(f"predict task {task_id} ({spec.name}, {len(keys)} image(s)):"
-            f" {n} flash_attn, {fused['add_layer_norm']} add_layer_norm, "
-            f"{fused['scaled_masked_softmax']} scaled_masked_softmax "
-            f"launches -> {json.dumps(result.to_json())[:160]}")
+            f" {n} flash_attn, {fused} launches -> "
+            f"{json.dumps(result.to_json())[:160]}")
         if n != LAUNCHES_PER_FORWARD:
             raise AssertionError(
                 f"task {task_id}: {n} kernel launches, expected "
@@ -2140,8 +2293,10 @@ def main_path(torch, report: dict, root: str):
         f"{e32:.3e}, {u32:.2f} of rtol 2e-3 + atol 2e-3")
 
     # run(collect_attention=True): the bridges take the dense path (it
-    # returns the probabilities), so only the 6 visual self-attentions
-    # launch the kernel; the maps match the CPU-f32 engine's.
+    # returns the probabilities: einsum, the softmax's kernel, einsum), so
+    # only the 6 visual self-attentions launch the flash kernel; the maps
+    # match the CPU-f32 engine's. This run is the softmax kernel's main
+    # path: a bucket-1 forward without maps launches it no time.
     task_id, question, keys = REQUESTS[0]
     flash_cross_attention.launches = 0
     zero_fused()
@@ -2163,7 +2318,7 @@ def main_path(torch, report: dict, root: str):
             worst_maps = max(worst_maps, (g - r).abs().max().item())
     log(f"collect_attention: {len(out.attn_data_list)} bridge map pairs, "
         f"{n_attn} flash_attn launches, {fused_counts()} (the bridges' "
-        f"softmax on the kernel), max abs err vs CPU f32 "
+        f"softmax on its kernel), max abs err vs CPU f32 "
         f"{worst_maps:.3e} (atol 0.05)")
     if (len(out.attn_data_list) != cfg.model.num_connection_layers
             or n_attn != cfg.model.v_num_hidden_layers
@@ -2212,8 +2367,8 @@ def graph_rows(n: int) -> list:
 def check_graphs(torch, report: dict, eng) -> None:
     """Capture every row bucket, then per bucket: graph replay against the
     eager forward on the same packed rows; in a profiled bucket-1 replay,
-    18 ``flash_attn``, 63 ``add_layer_norm`` and 12
-    ``scaled_masked_softmax`` launches."""
+    18 ``flash_attn``, 63 ``add_layer_norm`` and 12 ``dense_attention``
+    launches, no ``scaled_masked_softmax``."""
     from vilbert_multitask_tpu_torch.engine import graphs
     from vilbert_multitask_tpu_torch.ops.coattention import (
         flash_cross_attention,
@@ -2270,10 +2425,7 @@ def check_graphs(torch, report: dict, eng) -> None:
             f"in the trace, counter +{counted}; want {LAUNCHES_PER_FORWARD}")
     want = fused_want(eng.model_config, [1])
     check_fused(fused_counts(), want, "bucket-1 replay, counters")
-    check_fused({"add_layer_norm": traced["launches"]["add_layer_norm_kernel"],
-                 "scaled_masked_softmax": traced["launches"][
-                     "scaled_masked_softmax_kernel"]}, want,
-                "bucket-1 replay, trace")
+    check_fused(traced_fused(traced), want, "bucket-1 replay, trace")
     report["graphs"] = {
         "buckets": rows, "capture_s": capture_s, "pool_bytes": pool,
         "replay_kernels_bucket1": traced["kernels"],
@@ -2288,7 +2440,8 @@ def check_graphs(torch, report: dict, eng) -> None:
 # Kernels of the port named in a profiled replay (substrings of the
 # kernels' names in the trace).
 TRACED_KERNELS = ("flash_attn_bf16_kernel", "add_layer_norm_kernel",
-                  "scaled_masked_softmax_kernel", "int8_linear")
+                  "scaled_masked_softmax_kernel", "dense_attention_kernel",
+                  "int8_linear")
 
 
 def profiled_replay(torch, eng, bucket: int) -> dict:
@@ -2599,8 +2752,7 @@ def check_int8(torch, report: dict, eng, root: str, state: str):
 
     # The main path of this slice: predict() on the int8 engine, the
     # counts zeroed just before each request and read just after.
-    launches = {"int8_linear": 0, "flash_attn": 0, "add_layer_norm": 0,
-                "scaled_masked_softmax": 0}
+    launches = {"int8_linear": 0, "flash_attn": 0, **dict.fromkeys(FUSED, 0)}
     for task_id, question, keys in REQUESTS:
         spec = TASK_REGISTRY[task_id]
         bucket = cfg.engine.bucket_for(len(keys)) if len(keys) > 1 else 1
@@ -2685,11 +2837,7 @@ def check_int8(torch, report: dict, eng, root: str, state: str):
         f"kernel {traced8['launches']}, ms {traced8['ms']}")
     want = fused_want(cfg.model, [1])
     check_fused(fused_counts(), want, "int8 bucket-1 replay, counters")
-    check_fused({"add_layer_norm": traced8["launches"][
-                    "add_layer_norm_kernel"],
-                 "scaled_masked_softmax": traced8["launches"][
-                     "scaled_masked_softmax_kernel"]}, want,
-                "int8 bucket-1 replay, trace")
+    check_fused(traced_fused(traced8), want, "int8 bucket-1 replay, trace")
 
     # run() and run_many, int8 and bf16 in turns (host-bound walls move
     # between calls): bf16, int8, int8, bf16.
@@ -4179,15 +4327,15 @@ def check_served(torch, report: dict, eng, root: str, state: str) -> tuple:
                              f"({solo_launches} for {len(solo)} solo "
                              f"submits)")
     # Each solo submit is one forward at its own row bucket; over the whole
-    # window, a softmax launch per text layer of each forward and 63 or 64
-    # LayerNorms (an odd or even bucket) a forward.
+    # window, a dense core per text layer of each forward, no softmax, and
+    # 63 or 64 LayerNorms (an odd or even bucket) a forward.
     check_fused(solo_fused, fused_want(eng.model_config, [
         eng.cfg.engine.row_bucket_for(len(jobs[i][2])) for i in ids["solo"]]),
         "served solo submits")
     forwards = launches // LAUNCHES_PER_FORWARD
     per = fused_want(eng.model_config, [1])
-    if (served_fused["scaled_masked_softmax"]
-            != per["scaled_masked_softmax"] * forwards
+    if (any(served_fused[k] != per[k] * forwards for k in FUSED
+            if k != "add_layer_norm")
             or not per["add_layer_norm"] * forwards
             <= served_fused["add_layer_norm"]
             <= (per["add_layer_norm"] + 1) * forwards):
@@ -5792,8 +5940,7 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
                                  f"{LAUNCHES_PER_FORWARD}")
         # Every forward of the timed session is the bucket-1 request.
         fused_per_rank = [{k: r["runs"]["tp2_bf16"]["counts"][k]
-                           / timed["forwards"] for k in
-                           ("add_layer_norm", "scaled_masked_softmax")}
+                           / timed["forwards"] for k in FUSED}
                           for r in ranks_out]
         res["tp2_bf16"]["fused_launches_per_forward_by_rank"] = \
             fused_per_rank
@@ -5889,9 +6036,7 @@ def check_parallel(torch, report: dict, root: str, state: str, *,
         "tol_used": used3, "answers_differ": differ3,
         "flash_launches_per_forward_by_rank": per_rank3,
         "fused_launches_by_rank": [
-            {k: r["counts"][k] for k in ("add_layer_norm",
-                                         "scaled_masked_softmax")}
-            for r in tp3],
+            {k: r["counts"][k] for k in FUSED} for r in tp3],
         "heads_by_rank": [r["heads"] for r in tp3],
         "weight_mib_by_rank": [r["weight_mib"] for r in tp3],
         "staged": [r["staged"] for r in tp3],
@@ -6127,6 +6272,7 @@ def main() -> int:
     by_shape = check_flash_attention(torch, report)
     ln_rows = check_layer_norm(torch, report)
     softmax_rows = check_softmax(torch, report)
+    dense_rows = check_dense_attention(torch, report)
     nms_rows = check_nms(torch, report)
     roi_row = check_roi_align(torch, report)
     int8_rows = check_int8_linear(torch, report, ViLBertConfig())
@@ -6310,8 +6456,10 @@ def main() -> int:
                 "tp2_int8"]["bucket1_trunk_forward"],
         },
     })
-    # The two kernels that stand for XLA's fusions: per-site numbers summed
-    # over one bucket-1 forward (LN_FORWARD_SITES; 12 text softmaxes).
+    # The kernels that stand for XLA's fusions: per-site numbers summed over
+    # one bucket-1 forward (LN_FORWARD_SITES; the 12 text layers' dense
+    # cores; the softmax's 12 text shapes, its served launches before this
+    # slice: it now runs only for collected maps and f32).
     def ln_forward(key: str) -> float:
         return sum(n * ln_rows[(ci, res)][key]
                    for _, ci, res, n in LN_FORWARD_SITES)
@@ -6319,10 +6467,15 @@ def main() -> int:
     def sm_forward(key: str) -> float:
         return 12 * softmax_rows[(1, 12, 38, 38)][key]
 
+    def dense_forward(key: str) -> float:
+        return 12 * dense_rows[(1, 12)][key]
+
     def by_path(name: str) -> dict:
         trace = name + "_kernel"
         return {
             "predict": report["main_path_fused_launches"][name],
+            "collect_attention": report["collect_attention"][
+                "fused_launches"][name],
             "run_many": report["batched_fused_launches"][name],
             "served": report["served"]["fused_launches"][name],
             "per_graph_replay": report["graphs"]["replay_launches_bucket1"][
@@ -6335,7 +6488,7 @@ def main() -> int:
             "tp_rank_forward": tp_launches[name],
             "faults": report["faults"]["fused_launches"][name]}
 
-    for name, source, replaces, rows, forward, cases, per in (
+    for name, source, replaces, rows, forward, cases, per, launches in (
             ("add_layer_norm", "layer_norm.cu",
              "vilbert_multitask_tpu/models/layers.py:44 (XLA's fusion of "
              "nn.LayerNorm(dtype)(x + residual): layers.py:44-50, :68-76, "
@@ -6345,24 +6498,38 @@ def main() -> int:
              "one bucket-1 forward: 63 bf16 launches (36 at 38 x 768 with a "
              "residual, 1 without, 25 at 101 x 1024 with one, the label "
              "pair's 1 x 2 x 2048); composition = the sum, a cast to f32, "
-             "F.layer_norm and a cast back (the heads: the plain formula)"),
+             "F.layer_norm and a cast back (the heads: the plain formula)",
+             report["main_path_fused_launches"]["add_layer_norm"]),
             ("scaled_masked_softmax", "softmax.cu",
              "vilbert_multitask_tpu/ops/attention.py:49 (XLA's fusion of "
              "the scale, the mask bias, the f32 softmax and the cast, "
              ":49-59; no Pallas kernel)", softmax_rows, sm_forward,
              report["softmax_cases"],
-             "one bucket-1 forward: 12 bf16 launches at 12 x 38 x 38; "
-             "composition = the scale, the bias add, a cast to f32, "
-             "torch.softmax and a cast back")):
-        kernels["kernels"].append({
+             "12 bf16 launches at 12 x 38 x 38 (the text layers' before the "
+             "dense core took them; it now runs for collected bridge maps, "
+             "whose launches it counts here, and f32); composition = the "
+             "scale, the bias add, a cast to f32, torch.softmax and a cast "
+             "back", report["collect_attention"]["fused_launches"][
+                 "scaled_masked_softmax"]),
+            ("dense_attention", "dense_attention.cu",
+             "vilbert_multitask_tpu/ops/attention.py:36 (XLA's fusion of "
+             "multi_head_attention, :36-66: both einsums, the scale, the "
+             "mask bias, the f32 softmax and the casts; no Pallas kernel)",
+             dense_rows, dense_forward, report["dense_attention_cases"],
+             "one bucket-1 forward: 12 bf16 launches at 12 heads x 38 x 38 "
+             "x 64; composition = an einsum, the softmax's kernel, an "
+             "einsum (the port's route before); library = SDPA",
+             report["main_path_fused_launches"]["dense_attention"])):
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"vilbert_multitask_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": report["main_path_fused_launches"][name],
+            "launches": launches,
             "launches_by_path": by_path(name),
             "max_abs_err": max(r["max_abs_err"] for r in cases
-                               if r["dtype"] == "f32"),
+                               if r["dtype"] == "f32")
+            if any(r["dtype"] == "f32" for r in cases) else None,
             "max_abs_err_bf16": max(r["max_abs_err"] for r in cases
                                     if r["dtype"] == "bf16"),
             "ms": forward("kernel_ms"),
@@ -6370,7 +6537,8 @@ def main() -> int:
             "bound_ms": forward("bound_ms"),
             "bound_by": ("bytes" if forward("bound_bytes_ms")
                          >= forward("bound_ops_ms") else "operations"),
-            "library_ms": None,
+            "library_ms": (forward("library_ms")
+                           if name == "dense_attention" else None),
             "composition_ms": forward("composition_ms"),
             "per": per,
             "notes": {
@@ -6380,7 +6548,14 @@ def main() -> int:
                 "timed_shapes": [{k: v for k, v in r.items()
                                   if k not in ("bit_identical",)}
                                  for r in rows.values()]},
-        })
+        }
+        if entry["max_abs_err"] is None:  # a bf16-only kernel
+            entry["max_abs_err"] = entry["max_abs_err_bf16"]
+        kernels["kernels"].append(entry)
+    idle = [k["name"] for k in kernels["kernels"] if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels its main path launched no time: "
+                             f"{idle}")
     report.update(kernels)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

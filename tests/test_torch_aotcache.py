@@ -43,10 +43,11 @@ from vilbert_multitask_tpu_torch.engine import AotCache, compile_fingerprint
 from vilbert_multitask_tpu_torch.engine.aotcache import default_cache_dir
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ALL = ("flash_attn", "layer_norm", "softmax", "int8_linear", "nms",
-       "roi_align")
-# Every variant launches the LayerNorm and the text attentions' softmax.
-ALWAYS = ["layer_norm", "softmax"]
+ALL = ("flash_attn", "layer_norm", "softmax", "dense_attention",
+       "int8_linear", "nms", "roi_align")
+# Every variant launches the LayerNorm and the text attentions' dense core
+# (one kernel in bf16, the softmax's in f32 and for collected maps).
+ALWAYS = ["layer_norm", "softmax", "dense_attention"]
 
 NVCC = """#!/bin/sh
 # stand-in nvcc: --version, or "-o OUT SOURCE" built from a C stub

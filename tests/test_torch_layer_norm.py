@@ -33,7 +33,6 @@ from vilbert_multitask_tpu.models.heads import (
 )
 from vilbert_multitask_tpu_torch.ops import layer_norm as ln_ops
 from vilbert_multitask_tpu_torch.ops import routes
-from vilbert_multitask_tpu_torch.ops import softmax as softmax_ops
 
 EPS = 1e-12
 F32_TOL = 2e-5
@@ -249,45 +248,45 @@ def test_a_lost_gradient_is_refused():
 
 
 # ------------------------------------------------------ the forward's sites
-def _spies(monkeypatch):
-    """Count the calls of both kernels' entry points (module attributes the
-    routes look up at call time)."""
-    calls = {"add_layer_norm": 0, "scaled_masked_softmax": 0}
-    ln, sm = ln_ops.add_layer_norm, softmax_ops.scaled_masked_softmax
-
-    def ln_spy(*a, **k):
-        calls["add_layer_norm"] += 1
-        return ln(*a, **k)
-
-    def sm_spy(*a, **k):
-        calls["scaled_masked_softmax"] += 1
-        return sm(*a, **k)
-
-    monkeypatch.setattr(ln_ops, "add_layer_norm", ln_spy)
-    monkeypatch.setattr(softmax_ops, "scaled_masked_softmax", sm_spy)
-    return calls
+# The row kernels' entry points (H.spy_row_kernels counts their calls).
+ENTRY_POINTS = ("add_layer_norm", "scaled_masked_softmax", "dense_attention")
+_spies = H.spy_row_kernels
 
 
 def forward_launches(mcfg, rows: int, **kw) -> dict:
-    """The two entry points' share of engine/graphs.py:launches_per_forward
+    """The entry points' share of engine/graphs.py:launches_per_forward
     (what chip_smoke.py expects on the card)."""
     want = launches_per_forward(mcfg, rows, **kw)
-    return {k: want[k] for k in ("add_layer_norm", "scaled_masked_softmax")}
+    return {k: want[k] for k in ENTRY_POINTS}
 
 
 def test_the_full_serving_config_counts():
     """What chip_smoke.py reads on the card at full width: bucket 1 runs
     the 18 flash launches, 63 LayerNorms (no NLVR2 head on one row) and
-    the 12 text layers' softmaxes; two rows add the NLVR2 head's
-    LayerNorm; collected maps move the bridges to the softmax."""
-    from vilbert_multitask_tpu_torch.config import ViLBertConfig
+    the 12 text layers' dense cores, no softmax; two rows add the NLVR2
+    head's LayerNorm; collected maps move the bridges to the softmax; an
+    f32 engine's text layers take the softmax."""
+    from vilbert_multitask_tpu_torch.config import (
+        EngineConfig,
+        ViLBertConfig,
+    )
 
     full = ViLBertConfig()
     assert launches_per_forward(full, 1) == {
-        "flash_attn": 18, "add_layer_norm": 63, "scaled_masked_softmax": 12}
+        "flash_attn": 18, "add_layer_norm": 63, "scaled_masked_softmax": 0,
+        "dense_attention": 12}
     assert launches_per_forward(full, 2)["add_layer_norm"] == 64
     assert launches_per_forward(full, 1, collect_attention=True) == {
-        "flash_attn": 6, "add_layer_norm": 63, "scaled_masked_softmax": 24}
+        "flash_attn": 6, "add_layer_norm": 63, "scaled_masked_softmax": 12,
+        "dense_attention": 12}
+    f32 = launches_per_forward(full, 1,
+                               ecfg=EngineConfig(compute_dtype="float32"))
+    assert (f32["dense_attention"], f32["scaled_masked_softmax"]) == (0, 12)
+    # Text longer than 128 tokens keeps the composition.
+    long_text = launches_per_forward(full, 1,
+                                     ecfg=EngineConfig(max_text_len=128))
+    assert (long_text["dense_attention"],
+            long_text["scaled_masked_softmax"]) == (0, 12)
 
 
 @pytest.fixture(scope="module")
@@ -324,7 +323,8 @@ def test_the_served_forward_calls_each_entry_point_per_site(
     req = tiny_engine.prepare_from_store(task_id, "what is here", images)
     tiny_engine.run(req, collect_attention=collect)
     assert calls == forward_launches(tiny_engine.model_config, req.bucket,
-                                     collect_attention=collect)
+                                     collect_attention=collect,
+                                     ecfg=tiny_engine.cfg.engine)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
@@ -353,7 +353,7 @@ def test_the_int8_forward_takes_the_same_routes(tmp_path, monkeypatch, int8):
                           device="cpu")
     calls = _spies(monkeypatch)
     eng.run(eng.prepare_from_store(1, "what is here", ["img_a"]))
-    assert calls == forward_launches(mcfg, 1)
+    assert calls == forward_launches(mcfg, 1, ecfg=cfg.engine)
 
 
 def _pre_port_layer_norm(self, x, residual=None):
@@ -406,7 +406,7 @@ def test_a_training_step_calls_neither_kernel_and_keeps_its_gradients(
 
     calls = _spies(monkeypatch)
     now = grads()
-    assert calls == {"add_layer_norm": 0, "scaled_masked_softmax": 0}
+    assert calls == dict.fromkeys(ENTRY_POINTS, 0)
     monkeypatch.setattr(LayerNorm, "forward", _pre_port_layer_norm)
     before = grads()
     assert set(now) == set(before) and len(now) > 50

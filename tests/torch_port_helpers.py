@@ -28,6 +28,27 @@ from vilbert_multitask_tpu_torch.models.vilbert import (
 # Tier-1 runs the suite in several pytest-xdist workers on a few cores.
 torch.set_num_threads(2)
 
+
+def spy_row_kernels(monkeypatch) -> dict:
+    """Count the calls of the row kernels' entry points (module attributes
+    the routes look up at call time): ``{wrapper name: calls}``, as
+    ``engine/graphs.py:launches_per_forward`` names them."""
+    from vilbert_multitask_tpu_torch.ops import dense_attention as dense_ops
+    from vilbert_multitask_tpu_torch.ops import layer_norm as ln_ops
+    from vilbert_multitask_tpu_torch.ops import softmax as softmax_ops
+
+    calls = {}
+    for module, name in ((ln_ops, "add_layer_norm"),
+                         (softmax_ops, "scaled_masked_softmax"),
+                         (dense_ops, "dense_attention")):
+        def counted(*a, _name=name, _real=getattr(module, name), **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        calls[name] = 0
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
 OUTPUT_FIELDS = ("vil_prediction", "vil_prediction_gqa", "vil_logit",
                  "vil_binary_prediction", "vil_tri_prediction",
                  "vision_prediction", "vision_logit", "linguisic_prediction",

@@ -26,18 +26,25 @@
 // What bounds it on the H100 (3.35 TB/s HBM): every byte is read or written
 // once, 2 or 3 rows of W elements per row and 4 FLOP an element, so bytes
 // bound it: a bucket-1 text site (38 x 768 bf16, residual) moves ~176 KB,
-// 0.05 us at the HBM rate; at batch 1 the launch and one row's dependent
-// chain (load, two shuffle reductions, store) are what it waits on.
+// 0.05 us at the HBM rate. At batch 1 what it waits on is latency: the
+// launch, and one row's chain of loads, reductions and stores.
 //
-// Design (a simple one that is right): one warp per row, 4 rows per block.
-// Each lane owns 8-element chunks c = lane, lane + 32, ... and reads them as
-// 16-byte loads (one for bf16, two for f32): 3 chunks a lane at W = 768, 4 at
-// 1024, 8 at 2048. Up to 8 chunks a lane the row stays in registers between
-// the statistics and the output (instances of 1, 4 and 8 chunks; one of 2
-// made ptxas spill at one type combination); a wider row is read a second
-// time (the CH = 0 instance). Sum and sum of squares go through the warp's shuffles.
-// Every row's sum is taken in the same order on every launch: two launches
-// on the same inputs give identical bits.
+// Design, for that latency (the first design gave a row one warp, 4 rows to
+// a block: 10 blocks at a bucket-1 text site, 3-4 dependent 16-byte loads a
+// lane, and gamma and beta loaded only after the statistics):
+//   - a row is spread over whole warps, one 8-element chunk (16 bytes of
+//     bf16) a thread: 3 warps at W = 768, 4 at 1024, 8 at 2048. A block
+//     holds one row (up to 4 rows of a one-warp width; 2 of a two-warp
+//     one), so a bucket-1 text site runs 38 blocks and a visual one 101;
+//   - each thread issues all its loads, h, r, gamma and beta, before any
+//     arithmetic: no load waits behind the reductions;
+//   - sum and sum of squares go through the warp's shuffles as one pair,
+//     then one exchange through shared memory across the row's warps, added
+//     in warp order. The order is fixed, so two launches on the same inputs
+//     give identical bits;
+//   - rows wider than 8 warps of one chunk (W > 2048) take the CH = 0
+//     instance: 8 warps loop over the chunks and read the row twice. No
+//     served width needs it; it keeps every width a multiple of 8 launchable.
 //
 // C interface (bound with ctypes): vmt_add_layer_norm launches on the given
 // stream, allocates nothing, and returns a cudaError_t as an int.
@@ -53,8 +60,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRowsPerBlock = 4;  // one warp a row
-constexpr int kChunk = 8;         // elements a lane reads at once
+constexpr int kChunk = 8;        // elements a thread reads at once
+constexpr int kMaxWarps = 8;     // warps a row, at most (256 threads)
+constexpr int kWarpsPerBlock = 4;  // rows of narrow widths share a block
 
 __device__ __forceinline__ void load8(const bf16* p, float* v) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -115,93 +123,112 @@ __device__ __forceinline__ void load_sum(const TH* h, const TR* r,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ void add_chunk(const float* s, float2& p) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int e = 0; e < kChunk; ++e) {
+    p.x += s[e];
+    p.y += s[e] * s[e];
+  }
 }
 
-// CH > 0: the row's chunks stay in registers (W <= 256 * CH); CH == 0: any
-// width, the row read twice.
+// The row's (sum, sum of squares): the warp's shuffles, then the row's
+// warps added in order through shared memory. Every thread of the block
+// calls it (it holds a barrier when a row has more than one warp).
+__device__ __forceinline__ float2 row_sums(float2 p, int warps,
+                                           float2 (*red)[kMaxWarps]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    p.x += __shfl_xor_sync(0xffffffffu, p.x, o);
+    p.y += __shfl_xor_sync(0xffffffffu, p.y, o);
+  }
+  if (warps == 1) return p;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.y][threadIdx.x >> 5] = p;
+  __syncthreads();
+  float2 t = red[threadIdx.y][0];
+  for (int w = 1; w < warps; ++w) {
+    t.x += red[threadIdx.y][w].x;
+    t.y += red[threadIdx.y][w].y;
+  }
+  return t;
+}
+
+// Block (32 * warps, rows_per_block): threadIdx.y is the row in the block,
+// threadIdx.x the thread in the row. CH == 1: one chunk a thread, the row
+// in registers (W <= 8 * 32 * warps); CH == 0: any width, the row read
+// twice.
 template <typename TH, typename TR, typename TP, int CH>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 add_layer_norm_kernel(const TH* __restrict__ h, const TR* __restrict__ r,
                       const TP* __restrict__ gamma,
                       const TP* __restrict__ beta,
                       OutT<TH, TR>* __restrict__ out, long long rows,
                       int width, int groups, float eps) {
   using TO = OutT<TH, TR>;
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
+  __shared__ float2 red[kWarpsPerBlock][kMaxWarps];
+  const int warps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
+  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const bool real = row < rows;  // no early exit: row_sums holds a barrier
   const long long base = row * width;
   const long long pbase = (long long)(row % groups) * width;
   const int chunks = width / kChunk;
   const float w = (float)width;
-  float sum = 0.f, sq = 0.f;
-  if constexpr (CH > 0) {
-    float v[CH][kChunk];
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int c = lane + 32 * i;
-      if (c < chunks) {
-        load_sum<TH, TR, TO>(h, r, base + (long long)c * kChunk, v[i]);
-#pragma unroll
-        for (int e = 0; e < kChunk; ++e) {
-          sum += v[i][e];
-          sq += v[i][e] * v[i][e];
-        }
-      }
+  float2 p = make_float2(0.f, 0.f);
+  if constexpr (CH == 1) {
+    const bool mine = real && tid < chunks;
+    const long long at = (long long)tid * kChunk;
+    float s[kChunk], g[kChunk], b[kChunk];
+    if (mine) {
+      load_sum<TH, TR, TO>(h, r, base + at, s);
+      load8(gamma + pbase + at, g);
+      load8(beta + pbase + at, b);
+      add_chunk(s, p);
     }
-    const float mean = warp_sum(sum) / w;
-    const float var = fmaxf(0.f, warp_sum(sq) / w - mean * mean);
-    const float rs = rsqrtf(var + eps);
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int c = lane + 32 * i;
-      if (c < chunks) {
-        float g[kChunk], b[kChunk], y[kChunk];
-        load8(gamma + pbase + c * kChunk, g);
-        load8(beta + pbase + c * kChunk, b);
-#pragma unroll
-        for (int e = 0; e < kChunk; ++e) {
-          y[e] = (v[i][e] - mean) * (rs * g[e]) + b[e];
-        }
-        store8(out + base + (long long)c * kChunk, y);
-      }
-    }
-  } else {
-    for (int c = lane; c < chunks; c += 32) {
-      float s[kChunk];
-      load_sum<TH, TR, TO>(h, r, base + (long long)c * kChunk, s);
-#pragma unroll
-      for (int e = 0; e < kChunk; ++e) {
-        sum += s[e];
-        sq += s[e] * s[e];
-      }
-    }
-    const float mean = warp_sum(sum) / w;
-    const float var = fmaxf(0.f, warp_sum(sq) / w - mean * mean);
-    const float rs = rsqrtf(var + eps);
-    for (int c = lane; c < chunks; c += 32) {
-      float s[kChunk], g[kChunk], b[kChunk], y[kChunk];
-      load_sum<TH, TR, TO>(h, r, base + (long long)c * kChunk, s);
-      load8(gamma + pbase + c * kChunk, g);
-      load8(beta + pbase + c * kChunk, b);
+    const float2 t = row_sums(p, warps, red);
+    const float mean = t.x / w;
+    const float rs = rsqrtf(fmaxf(0.f, t.y / w - mean * mean) + eps);
+    if (mine) {
+      float y[kChunk];
 #pragma unroll
       for (int e = 0; e < kChunk; ++e) y[e] = (s[e] - mean) * (rs * g[e]) + b[e];
-      store8(out + base + (long long)c * kChunk, y);
+      store8(out + base + at, y);
+    }
+  } else {
+    const int step = blockDim.x;
+    if (real) {
+      for (int c = tid; c < chunks; c += step) {
+        float s[kChunk];
+        load_sum<TH, TR, TO>(h, r, base + (long long)c * kChunk, s);
+        add_chunk(s, p);
+      }
+    }
+    const float2 t = row_sums(p, warps, red);
+    const float mean = t.x / w;
+    const float rs = rsqrtf(fmaxf(0.f, t.y / w - mean * mean) + eps);
+    if (real) {
+      for (int c = tid; c < chunks; c += step) {
+        const long long at = (long long)c * kChunk;
+        float s[kChunk], g[kChunk], b[kChunk], y[kChunk];
+        load_sum<TH, TR, TO>(h, r, base + at, s);
+        load8(gamma + pbase + at, g);
+        load8(beta + pbase + at, b);
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) y[e] = (s[e] - mean) * (rs * g[e]) + b[e];
+        store8(out + base + at, y);
+      }
     }
   }
 }
 
+// A row of `warps` warps: 4 rows a block at one warp, 2 at two, else 1.
 template <typename TH, typename TR, typename TP, int CH>
-void run(long long rows, const void* h, const void* r, const void* gamma,
-         const void* beta, void* out, int width, int groups, float eps,
-         cudaStream_t st) {
-  const dim3 grid((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
-  add_layer_norm_kernel<TH, TR, TP, CH><<<grid, kRowsPerBlock * 32, 0, st>>>(
+void run(long long rows, int warps, const void* h, const void* r,
+         const void* gamma, const void* beta, void* out, int width,
+         int groups, float eps, cudaStream_t st) {
+  const int per_block = warps < kWarpsPerBlock ? kWarpsPerBlock / warps : 1;
+  const dim3 block(32 * warps, per_block);
+  const dim3 grid((unsigned)((rows + per_block - 1) / per_block));
+  add_layer_norm_kernel<TH, TR, TP, CH><<<grid, block, 0, st>>>(
       static_cast<const TH*>(h), static_cast<const TR*>(r),
       static_cast<const TP*>(gamma), static_cast<const TP*>(beta),
       static_cast<OutT<TH, TR>*>(out), rows, width, groups, eps);
@@ -211,15 +238,13 @@ template <typename TH, typename TR, typename TP>
 int launch(const void* h, const void* r, const void* gamma, const void* beta,
            void* out, long long rows, int width, int groups, float eps,
            cudaStream_t st) {
-  const int per_lane = (width / kChunk + 31) / 32;
-  if (per_lane <= 1) {
-    run<TH, TR, TP, 1>(rows, h, r, gamma, beta, out, width, groups, eps, st);
-  } else if (per_lane <= 4) {
-    run<TH, TR, TP, 4>(rows, h, r, gamma, beta, out, width, groups, eps, st);
-  } else if (per_lane <= 8) {
-    run<TH, TR, TP, 8>(rows, h, r, gamma, beta, out, width, groups, eps, st);
+  const int warps = (width / kChunk + 31) / 32;  // one chunk a thread
+  if (warps <= kMaxWarps) {
+    run<TH, TR, TP, 1>(rows, warps, h, r, gamma, beta, out, width, groups,
+                       eps, st);
   } else {
-    run<TH, TR, TP, 0>(rows, h, r, gamma, beta, out, width, groups, eps, st);
+    run<TH, TR, TP, 0>(rows, kMaxWarps, h, r, gamma, beta, out, width,
+                       groups, eps, st);
   }
   return (int)cudaGetLastError();
 }
@@ -251,7 +276,7 @@ extern "C" int vmt_add_layer_norm(int h_dtype, int r_dtype, int p_dtype,
                                   int groups, float eps, void* stream) {
   const bool no_r = r_dtype == -1;
   if (rows < 1 || width < kChunk || width % kChunk != 0 || groups < 1 ||
-      (rows + kRowsPerBlock - 1) / kRowsPerBlock > 0x7fffffffLL ||
+      rows > 0x7fffffffLL ||
       (h_dtype != 0 && h_dtype != 1) || (p_dtype != 0 && p_dtype != 1) ||
       (no_r != (r == nullptr)) || (!no_r && r_dtype != 0 && r_dtype != 1) ||
       (h_dtype == 0 && r_dtype == 1) || !aligned16(h) || !aligned16(gamma) ||

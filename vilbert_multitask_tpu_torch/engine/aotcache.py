@@ -43,8 +43,10 @@ from vilbert_multitask_tpu_torch import _build
 def compile_fingerprint(cfg, *, live_extract: bool = False
                         ) -> Dict[str, Any]:
     """Everything that keys the variant's compiled code: the libraries it
-    launches (``layer_norm`` and ``softmax`` in every variant: every
-    forward runs the LayerNorm kernel and the text attentions' softmax;
+    launches (``layer_norm``, ``softmax`` and ``dense_attention`` in every
+    variant: every forward runs the LayerNorm kernel, and the text
+    attentions' dense core as one kernel in bf16 or through the softmax's
+    in f32 and for collected bridge maps;
     ``flash_attn`` whenever the hand-written attention is selected,
     ``int8_linear`` with int8 storage, ``nms`` and ``roi_align`` with live
     extraction), nvcc's flags, the toolkit's release line and each
@@ -53,7 +55,7 @@ def compile_fingerprint(cfg, *, live_extract: bool = False
     libs = []
     if ecfg.use_pallas_coattention or ecfg.use_pallas_self_attention:
         libs.append("flash_attn")
-    libs += ["layer_norm", "softmax"]
+    libs += ["layer_norm", "softmax", "dense_attention"]
     if ecfg.param_dtype == "int8":
         libs.append("int8_linear")
     if live_extract:

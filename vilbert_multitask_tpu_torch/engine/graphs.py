@@ -12,8 +12,8 @@ host call.
 What is captured, for one bucket (:meth:`InferenceEngine._rows_step`):
 the gather of the request's image rows from the device row slab by a slot
 vector, the trunk (including the hand-written flash kernel's 18 launches,
-the residual-add LayerNorm's and the text attentions' softmax kernels and,
-in the int8 storage mode, the int8 GEMM's),
+the residual-add LayerNorm's and the text attentions' dense-core kernels
+and, in the int8 storage mode, the int8 GEMM's),
 the fused heads, and the softmax/top-3 decode bundle flattened into one
 f32 tensor. The inputs are one static ``(bucket, 3·Nt + 2)`` int64 pack
 (text ids, segment ids, text mask, task id, slab slot per row); the slab,
@@ -53,7 +53,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from vilbert_multitask_tpu_torch.config import EngineConfig
 from vilbert_multitask_tpu_torch.detect.model import roi_align
+from vilbert_multitask_tpu_torch.ops import dense_attention as dense_ops
 from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
 from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
 from vilbert_multitask_tpu_torch.ops.layer_norm import add_layer_norm
@@ -62,26 +64,41 @@ from vilbert_multitask_tpu_torch.ops.softmax import scaled_masked_softmax
 
 # Every hand-written kernel's wrapper (each carries a ``launches`` count).
 KERNEL_WRAPPERS = (flash_cross_attention, nms_mask, roi_align, int8_linear,
-                   add_layer_norm, scaled_masked_softmax)
+                   add_layer_norm, scaled_masked_softmax,
+                   dense_ops.dense_attention)
 
 
 def launches_per_forward(mcfg, rows: int, *,
-                         collect_attention: bool = False) -> Dict[str, int]:
+                         collect_attention: bool = False,
+                         ecfg: Optional[EngineConfig] = None
+                         ) -> Dict[str, int]:
     """Launches of the trunk's and heads' kernels in one served forward of
-    ``rows`` image rows with the engine's kernels on (``EngineConfig``'s
-    default ``use_pallas_*``), by kernel (the int8 storage mode adds
-    ``int8_linear``'s):
+    ``rows`` image rows with the engine's kernels on (``use_pallas_*`` as
+    ``EngineConfig``'s default; the compute dtype, text length and region
+    count of ``ecfg``, by default ``EngineConfig()``), by kernel (the int8
+    storage mode adds ``int8_linear``'s):
 
     - ``flash_attn``: each self-attention whose head_dim passes the
       ``% 128`` gate, both directions of each bridge unless its maps are
       collected;
-    - ``scaled_masked_softmax``: every other attention (the dense path);
+    - ``dense_attention``: each other self-attention that the dense core's
+      gate takes (``ops/dense_attention.py:fits``: bf16, head_dim % 16, at
+      most 128 keys);
+    - ``scaled_masked_softmax``: every other attention (an f32 engine's,
+      the bridges' when their maps are collected);
     - ``add_layer_norm``: after each attention and each feed-forward (2 a
       single-stream layer, 4 a bridge), one per embedding, the label
       pair's grouped one, and the NLVR2 head's when ``rows`` is even.
     """
+    ecfg = ecfg or EngineConfig()
+    dtype = getattr(torch, ecfg.compute_dtype)
+
     def flash(hidden: int, heads: int) -> bool:
         return (hidden // heads) % 128 == 0
+
+    def dense(hidden: int, heads: int, keys: int) -> bool:
+        return (not flash(hidden, heads)
+                and dense_ops.fits(hidden // heads, keys, dtype))
 
     bridges = len(mcfg.v_biattention_id)
     text = flash(mcfg.hidden_size, mcfg.num_attention_heads)
@@ -89,10 +106,17 @@ def launches_per_forward(mcfg, rows: int, *,
     bridge = not collect_attention
     n_flash = (mcfg.num_hidden_layers * text
                + mcfg.v_num_hidden_layers * visual + 2 * bridges * bridge)
+    # Text rows are max_text_len tokens and the task token.
+    n_dense = (mcfg.num_hidden_layers * dense(
+        mcfg.hidden_size, mcfg.num_attention_heads, ecfg.max_text_len + 1)
+        + mcfg.v_num_hidden_layers * dense(
+            mcfg.v_hidden_size, mcfg.v_num_attention_heads,
+            ecfg.max_regions))
     n_attn = (mcfg.num_hidden_layers + mcfg.v_num_hidden_layers
               + 2 * bridges)
     return {"flash_attn": n_flash,
-            "scaled_masked_softmax": n_attn - n_flash,
+            "dense_attention": n_dense,
+            "scaled_masked_softmax": n_attn - n_flash - n_dense,
             "add_layer_norm": (2 * mcfg.num_hidden_layers
                                + 2 * mcfg.v_num_hidden_layers + 4 * bridges
                                + 2 + 1 + (rows % 2 == 0))}

@@ -14,7 +14,8 @@ mounts the directory boots with no nvcc run:
         --cache-dir <dir> [--dtype float32|bfloat16|int8] [--live-extract]
 
 One process covers one variant: every variant builds ``flash_attn``,
-``layer_norm`` and ``softmax``; ``--dtype int8`` adds ``int8_linear``,
+``layer_norm``, ``softmax`` and ``dense_attention``; ``--dtype int8`` adds
+``int8_linear``,
 ``--live-extract`` the detector's ``nms`` and ``roi_align``. It prints one
 JSON report (each library: ``hit`` or ``built``, nvcc's seconds, the
 verification's error and the fingerprint) and exits non-zero without nvcc,
@@ -33,6 +34,10 @@ import time
 # f32 kernel against its plain version: |d| <= TOL * max(1, |ref|) (the
 # repo's f32 kernel tolerance).
 TOL = 2e-5
+# The bf16-only dense_attention against its plain version on the same bf16
+# inputs: the output rounded to bf16 (2^-8 relative) and a score that
+# rounds the other way when the two sum in another order.
+BF16_TOL = 2e-2
 
 
 def _check_flash_attn(torch, dev, gen) -> float:
@@ -117,6 +122,20 @@ def _check_softmax(torch, dev, gen) -> float:
                 scaled_masked_softmax_plain(s, bias, 0.125))
 
 
+def _check_dense_attention(torch, dev, gen) -> float:
+    from vilbert_multitask_tpu_torch.ops.dense_attention import (
+        dense_attention,
+        dense_attention_plain,
+    )
+
+    q, k, v = (torch.randn(1, 38, 12, 64, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(1, 1, 1, 38, device=dev, dtype=torch.bfloat16)
+    bias[..., 30:] = -10000.0
+    return _err(dense_attention(q, k, v, bias, 0.125),
+                dense_attention_plain(q, k, v, bias, 0.125))
+
+
 def _err(got, ref) -> float:
     """The largest |got - ref| / max(1, |ref|)."""
     return float(((got.float() - ref.float()).abs()
@@ -125,6 +144,7 @@ def _err(got, ref) -> float:
 
 CHECKS = {"flash_attn": _check_flash_attn,
           "layer_norm": _check_layer_norm, "softmax": _check_softmax,
+          "dense_attention": _check_dense_attention,
           "int8_linear": _check_int8_linear,
           "nms": _check_nms, "roi_align": _check_roi_align}
 
@@ -185,7 +205,8 @@ def main(argv=None) -> int:
     for name, rec in built["libraries"].items():
         err = CHECKS[name](torch, dev, gen)
         torch.cuda.synchronize()
-        ok = err == 0 if name == "nms" else err <= TOL
+        ok = err == 0 if name == "nms" else err <= (
+            BF16_TOL if name == "dense_attention" else TOL)
         report["libraries"][name] = {
             "status": rec["status"], "seconds": rec["seconds"],
             "load_s": rec["load_s"], "file": os.path.basename(rec["path"]),

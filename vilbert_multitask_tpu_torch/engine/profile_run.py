@@ -20,7 +20,9 @@ run replays it — then measures:
 - ``host_top``: the host-side operations with the most self CPU time per
   run (where the host's share of the wall goes);
 - ``int8_linear``: the int8 GEMM kernels' launches and device time per run
-  and their share of the device's busy time (int8 storage mode).
+  and their share of the device's busy time (int8 storage mode);
+- ``row_kernels``: launches and device time per run of each of
+  ``ROW_KERNELS`` (the residual LayerNorm, the softmax, the dense core).
 
 Prints one JSON line and writes it to ``chiprun_out/profile_run.json``
 (``profile_run_graphs.json`` with ``--graphs``; ``_int8`` before
@@ -37,6 +39,11 @@ import json
 import os
 import statistics
 import time
+
+
+# The port's kernels that stand for XLA's fusions, by wrapper name (each
+# kernel's name in the trace is the wrapper's with ``_kernel`` after it).
+ROW_KERNELS = ("add_layer_norm", "scaled_masked_softmax", "dense_attention")
 
 
 def _union_us(intervals) -> float:
@@ -96,6 +103,8 @@ def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     flash = [v for k, v in by_name.items() if "flash_attn" in k]
     int8 = [v for k, v in by_name.items() if "int8_linear" in k]
+    rowwise = {n: [v for k, v in by_name.items() if n + "_kernel" in k]
+               for n in ROW_KERNELS}
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
@@ -127,6 +136,10 @@ def profile_run(reps: int = 20, seed: int = 0, graphs: bool = False,
                                        for k, (c, t) in by_name.items()
                                        if "int8_linear" in k}}
                         if int8 else None),
+        "row_kernels": {n: {"launches_per_run": sum(c for c, _ in v) / reps,
+                            "device_ms_per_run":
+                                sum(t for _, t in v) / 1e3 / reps}
+                        for n, v in rowwise.items()},
         "top_kernels": [{"name": k[:120], "launches_per_run": c / reps,
                          "device_ms_per_run": t / 1e3 / reps}
                         for k, (c, t) in top],

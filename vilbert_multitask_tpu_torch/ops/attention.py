@@ -11,7 +11,14 @@ numerics and the same kernel gates:
   records;
 - self-attention takes the flash kernel when ``use_pallas``, there is no
   dropout and ``head_dim % 128 == 0``; a bridge direction takes it when
-  ``use_pallas``, no probabilities are needed and there is no dropout.
+  ``use_pallas``, no probabilities are needed and there is no dropout;
+- any other attention with no dropout and no probabilities asked takes
+  the dense core as one kernel (``ops/dense_attention.py``) when it is a
+  bf16 call autograd does not record with ``head_dim % 16 == 0`` and at
+  most 128, and at most 128 keys (every served text self-attention); the
+  rest (f32, collected bridge maps, longer text, a recorded call) runs
+  :func:`multi_head_attention`: an einsum, the softmax's kernel, an
+  einsum.
 
 The module tree keeps the upstream torch key layout (``attention.self.
 {query,key,value}``), so the reference's checkpoint loads unchanged. The
@@ -29,8 +36,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from vilbert_multitask_tpu_torch.ops import dense_attention as dense_ops
 from vilbert_multitask_tpu_torch.ops import softmax as softmax_ops
 from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
+from vilbert_multitask_tpu_torch.ops.routes import records_gradient
 
 
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -113,6 +122,14 @@ def cross_attention(
     if use_pallas and not need_probs and not use_dropout:
         ctx = flash_cross_attention(q, k, v, y_mask_bias)
         return ctx.reshape(B, Nq, hidden), None
+    # The dense core as one kernel: a gate by shape and type, as the flash
+    # kernel's; the kernel has no backward, so a recorded call keeps the
+    # composition below.
+    if (not need_probs and not use_dropout
+            and dense_ops.fits(head_dim, Nk, q.dtype)
+            and not records_gradient(q, k, v, y_mask_bias)):
+        return dense_ops.dense_attention(
+            q, k, v, y_mask_bias, _inv_sqrt(head_dim, q.dtype)), None
     ctx, probs = multi_head_attention(q, k, v, y_mask_bias,
                                       dropout_rate=dropout_rate,
                                       training=training, dtype=q.dtype,
@@ -131,7 +148,8 @@ class FusedSelfAttention(nn.Module):
     ``parallel.ring.RingContext``, set on the visual stream of a model
     built with ``ring_v``) when it engages at this sequence length and
     there is no dropout; then the flash kernel when ``use_pallas``, no
-    dropout and ``head_dim % 128 == 0``; then dense. Under tensor
+    dropout and ``head_dim % 128 == 0``; then dense (one kernel where
+    :func:`cross_attention`'s gate lets it). Under tensor
     parallelism (parallel/tp.py) the projections hold this rank's heads
     and ``num_heads`` counts them; ``head_dim`` does not change.
     """
@@ -172,7 +190,9 @@ class FusedSelfAttention(nn.Module):
             return ctx.to(q.dtype).reshape(*x.shape[:-1], -1), None
         # Self-attention probs are never surfaced (the reference's
         # attn_data_list carries only the bridge maps), so dropout and the
-        # head width alone gate the kernel.
+        # head width alone gate the flash kernel; a head_dim that fails the
+        # % 128 gate (the text stream's 64) takes the dense core's kernel
+        # when bf16, % 16 and at most 128 keys (cross_attention).
         return cross_attention(
             x, x, mask_bias, self.query, self.key, self.value,
             num_heads=self.num_heads,

@@ -1,13 +1,15 @@
 """Which calls of the model take a hand-written kernel that has no backward.
 
-``csrc/layer_norm.cu`` and ``csrc/softmax.cu`` compute the forward only.
-The model's sites (``ops/layer_norm.py:layer_norm``,
-``ops/softmax.py:attention_probs``) route each call by
+``csrc/layer_norm.cu``, ``csrc/softmax.cu`` and ``csrc/dense_attention.cu``
+compute the forward only. The model's sites (``ops/layer_norm.py:
+layer_norm``, ``ops/softmax.py:attention_probs``, the dense core's gate in
+``ops/attention.py:cross_attention``) route each call by
 :func:`records_gradient`:
 
 - a call that autograd records (gradients enabled, and an input or a
   parameter requires grad: the trainer's step) takes a torch composition
-  that autograd follows (``F.layer_norm``; the softmax's plain version);
+  that autograd follows (``F.layer_norm``; the softmax's plain version
+  inside ``multi_head_attention``);
 - any other call takes the kernel's wrapper: the card's inference calls
   (the served engine and its graphs, ``EvalHook``, a forward under
   ``torch.no_grad``) launch the kernel, and CPU tensors take the plain
