@@ -13,6 +13,12 @@ precomputed file, so the demo's upload→answer flow works end to end:
 On the card the whole extraction runs on the device: the resize, the
 detector (cuDNN convolutions, the hand-written NMS and ROIAlign kernels),
 and the per-class selection; only the kept rows come back to the host.
+
+Each stage is an ``obs`` span: ``detect.decode`` (PIL), ``detect.preprocess``,
+``detect.enqueue`` (the host's enqueue of the detector's forward, with
+its device time from events on the extractor's stream, ``device_ms``;
+the model's own ``detect.backbone`` / ``fpn`` / ``rpn`` / ``roi_align`` /
+``box_head`` inside it), ``detect.select`` and ``detect.host_copy``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from vilbert_multitask_tpu_torch import obs
 from vilbert_multitask_tpu_torch.config import DetectorConfig
 from vilbert_multitask_tpu_torch.detect.model import (
     FasterRCNN,
@@ -140,18 +147,26 @@ class LiveFeatureExtractor:
         max_size = min(1333, canvas)
         min_size = min(800, max_size)
         with self._lock, self._context():
-            with torch.profiler.record_function("detect.preprocess"):
+            with obs.span("detect.preprocess"):
                 image = torch.from_numpy(np.require(
                     rgb, np.uint8, ("C_CONTIGUOUS", "WRITEABLE"))).to(
                         self.device)
                 bgr, scale = preprocess_image(image, min_size=min_size,
                                               max_size=max_size)
-            boxes, cls_scores, feats = self.forward(
-                bgr, (bgr.shape[0], bgr.shape[1]))
-            with torch.profiler.record_function("detect.select"):
+            with obs.span("detect.enqueue") as enqueue:
+                events = None
+                if enqueue.recording and self._stream is not None:
+                    events = [torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)]
+                    events[0].record(self._stream)
+                boxes, cls_scores, feats = self.forward(
+                    bgr, (bgr.shape[0], bgr.shape[1]))
+                if events is not None:
+                    events[1].record(self._stream)
+            with obs.span("detect.select"):
                 keep, num_valid, _conf, _obj, _top = select_top_regions(
                     boxes, cls_scores, num_keep=self.num_keep)
-            with torch.profiler.record_function("detect.host_copy"):
+            with obs.span("detect.host_copy"):
                 rows = [num_valid.reshape(1).to(torch.float32), boxes[keep],
                         feats[keep], cls_scores[keep]]
                 host = [torch.empty(r.shape, dtype=r.dtype,
@@ -161,6 +176,8 @@ class LiveFeatureExtractor:
                     dst.copy_(src, non_blocking=True)
                 if self._stream is not None:
                     self._stream.synchronize()
+            if events is not None:
+                enqueue.set(device_ms=events[0].elapsed_time(events[1]))
         n_valid, kept_boxes, kept_feats, kept_cls = (t.numpy() for t in host)
         n = int(min(int(n_valid[0]), len(kept_boxes))) or 1
         return RegionFeatures(
@@ -172,7 +189,8 @@ class LiveFeatureExtractor:
     def extract(self, image_path: str) -> RegionFeatures:
         from PIL import Image
 
-        rgb = np.asarray(Image.open(image_path).convert("RGB"))
+        with obs.span("detect.decode"):
+            rgb = np.asarray(Image.open(image_path).convert("RGB"))
         return self.extract_array(rgb)
 
 

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vilbert_multitask_tpu_torch import _build
+from vilbert_multitask_tpu_torch import _build, obs
 from vilbert_multitask_tpu_torch.config import DetectorConfig
 from vilbert_multitask_tpu_torch.ops.nms import nms_mask, top_k
 
@@ -450,9 +450,9 @@ class FasterRCNN(nn.Module):
     def features(self, image: torch.Tensor) -> List[torch.Tensor]:
         """(canvas, canvas, 3) image → P2..P6, NCHW in channels-last."""
         x = image.permute(2, 0, 1)[None]  # a channels-last NCHW view
-        with torch.profiler.record_function("detect.backbone"):
+        with obs.span("detect.backbone"):
             feats = self.backbone(x)
-        with torch.profiler.record_function("detect.fpn"):
+        with obs.span("detect.fpn"):
             return self.fpn(feats)
 
     def propose(self, feats: List[torch.Tensor], image_hw: Sequence[float]
@@ -497,10 +497,10 @@ class FasterRCNN(nn.Module):
         """ROIAlign over P2..P5, fc6 → fc7 → class softmax: (cls, fc6)."""
         c = self.cfg
         maps = [f.permute(0, 2, 3, 1)[0] for f in feats[:ROI_LEVELS]]
-        with torch.profiler.record_function("detect.roi_align"):
+        with obs.span("detect.roi_align"):
             pooled = roi_align(maps, proposals, FPN_STRIDES[:ROI_LEVELS],
                                c.roi_resolution, c.roi_sampling)
-        with torch.profiler.record_function("detect.box_head"):
+        with obs.span("detect.box_head"):
             fc6 = F.relu(self.fc6(pooled.reshape(pooled.shape[0], -1)))
             fc7 = F.relu(self.fc7(fc6))
             cls = torch.softmax(self.cls_score(fc7), dim=-1)
@@ -512,7 +512,7 @@ class FasterRCNN(nn.Module):
         (h, w) of the canvas (host numbers). Returns (proposals, cls,
         fc6)."""
         feats = self.features(image)
-        with torch.profiler.record_function("detect.rpn"):
+        with obs.span("detect.rpn"):
             proposals, _ = self.propose(feats, image_hw)
         cls, fc6 = self.box_head(feats, proposals)
         return proposals, cls, fc6

@@ -284,17 +284,27 @@ def _align(n: int, to: int = 16) -> int:
 @dataclasses.dataclass
 class _Dispatch:
     """One enqueued forward: its bundle is (being) copied into ``host``;
-    ``event`` completes when the copy has landed (None on the CPU)."""
+    ``event`` completes when the copy has landed (None on the CPU).
+    While the ``engine.replay`` span records, ``start`` is recorded on the
+    engine stream just before the forward and both are timing events;
+    otherwise ``start`` is None."""
 
     host: torch.Tensor  # (rows, W) f32, pinned on the card
     spec: List[tuple]
     event: Optional["torch.cuda.Event"]
     out: Optional[ViLBertOutput]
+    start: Optional["torch.cuda.Event"] = None
 
     def fetch(self) -> dict:
-        if self.event is not None:
-            self.event.synchronize()
-        return _unflatten_bundle(self.host.numpy(), self.spec)
+        """Wait for the bundle, then unflatten it. The ``engine.fetch``
+        span carries the forward's device time (``device_ms``: ``start``
+        to ``event``), read after the wait."""
+        with obs.span("engine.fetch") as sp:
+            if self.event is not None:
+                self.event.synchronize()
+                if sp.recording and self.start is not None:
+                    sp.set(device_ms=self.start.elapsed_time(self.event))
+            return _unflatten_bundle(self.host.numpy(), self.spec)
 
 
 def _leaf_shape(v) -> tuple:
@@ -394,7 +404,6 @@ class InferenceEngine:
             [1 if (t in TASK_REGISTRY
                    and TASK_REGISTRY[t].head == "vil_prediction_gqa") else 0
              for t in range(n_tasks)], dtype=torch.long, device=self.device)
-        self.stage_times: Dict[str, float] = {}
         # Boot-phase split for /healthz: upload_s (weights), compile_s
         # (graph capture at warmup, also booked as capture_s; the server
         # adds restore_s, cache_load_s and nvcc's share of compile_s).
@@ -814,22 +823,18 @@ class InferenceEngine:
             raise RuntimeError("prepare_from_store() needs a FeatureStore; "
                                "use prepare() with in-memory regions instead")
         fetch = getattr(self.feature_store, "fetch", None)
-        t0 = time.perf_counter()
-        with obs.span("engine.features", source="store",
-                      n_images=len(image_paths), task_id=task_id):
-            if fetch is not None:
-                pairs = [fetch(p) for p in image_paths]
-                regions = [r for r, _ in pairs]
-                cache_keys: Optional[List[str]] = [k for _, k in pairs]
-            else:
-                regions = self.feature_store.get_batch(image_paths)
-                cache_keys = None
-        fetch_s = time.perf_counter() - t0
-        req = self.prepare(task_id, question, regions, image_paths,
-                           cache_keys=cache_keys)
-        self.stage_times["features_s"] = (
-            self.stage_times.get("features_s", 0.0) + fetch_s)
-        return req
+        with obs.span("engine.prepare", task_id=task_id):
+            with obs.span("engine.features", source="store",
+                          n_images=len(image_paths), task_id=task_id):
+                if fetch is not None:
+                    pairs = [fetch(p) for p in image_paths]
+                    regions = [r for r, _ in pairs]
+                    cache_keys: Optional[List[str]] = [k for _, k in pairs]
+                else:
+                    regions = self.feature_store.get_batch(image_paths)
+                    cache_keys = None
+            return self._prepare(task_id, question, regions, image_paths,
+                                 cache_keys)
 
     def prepare(self, task_id: int, question: str,
                 regions: Sequence[RegionFeatures],
@@ -841,6 +846,16 @@ class InferenceEngine:
         semantics of worker.py:256-284). ``cache_keys`` (one stable
         identity per image) opts the request's rows into the device input
         cache — pass them only for content-stable images."""
+        with obs.span("engine.prepare", task_id=task_id):
+            return self._prepare(task_id, question, regions, image_paths,
+                                 cache_keys)
+
+    def _prepare(self, task_id: int, question: str,
+                 regions: Sequence[RegionFeatures],
+                 image_paths: Optional[Sequence[str]],
+                 cache_keys: Optional[Sequence[str]]) -> PreparedRequest:
+        """prepare()'s work, inside the caller's ``engine.prepare`` span:
+        the ``engine.tokenize`` and ``engine.features`` (encode) stages."""
         if task_id not in TASK_REGISTRY:
             raise ValueError(f"unknown task_id {task_id}")
         spec = TASK_REGISTRY[task_id]
@@ -849,15 +864,12 @@ class InferenceEngine:
         ecfg = self.cfg.engine
         bucket = n if n == 1 else ecfg.bucket_for(n)
 
-        t0 = time.perf_counter()
         with obs.span("engine.tokenize", task_id=task_id):
             text = encode_question(
                 self.tokenizer, question, ecfg.max_text_len,
                 task_id=task_id,
                 lowercase=self.cfg.serving.lowercase_questions,
             ).stack(bucket)
-        self.stage_times["tokenize_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         with obs.span("engine.features", source="encode", n_images=n,
                       task_id=task_id):
             regions = clip_regions(regions, ecfg.max_regions,
@@ -866,7 +878,6 @@ class InferenceEngine:
             feats, spatials, image_mask = batch_images(encoded,
                                                        pad_to=bucket)
             feats = torch.from_numpy(feats).to(self.transfer_dtype)
-        self.stage_times["features_s"] = time.perf_counter() - t0
         task_ids = np.full((bucket, 1), task_id, np.int32)
         if cache_keys is not None:
             if len(cache_keys) != n:
@@ -1055,7 +1066,9 @@ class InferenceEngine:
     # ------------------------------------------------------------- dispatch
     def _pack_host(self, text: dict, slots: Sequence[int]) -> np.ndarray:
         """The per-dispatch input: ``(bucket, 3·Nt + 2)`` int64 columns
-        [input ids | segment ids | text mask | task id | slab slot]."""
+        [input ids | segment ids | text mask | task id | slab slot]. A
+        dispatch packs with every slot 0 (the pad row); :meth:`_run_rows`
+        writes its rows' slots in."""
         return np.concatenate([
             np.asarray(text["input_ids"], np.int64),
             np.asarray(text["segment_ids"], np.int64),
@@ -1166,56 +1179,71 @@ class InferenceEngine:
         return (torch.cuda.stream(self._stream) if self._stream is not None
                 else contextlib.nullcontext())
 
-    def _run_rows(self, bucket: int, collect_attention: bool, text: dict,
-                  rows: Sequence[tuple], *, keep_out: bool = False
-                  ) -> _Dispatch:
-        """Enqueue one dispatch: resolve each (host_row, cache_key) to a
-        slab slot (pad slots are 0), upload the new rows and the pack,
-        write the slab, then the forward — the bucket's graph when one is
-        captured and no attention maps are asked for, else eager — and
-        the bundle's copy to pinned host memory. Returns without waiting
-        on the card. ``keep_out`` keeps the model output (copied off the
-        graph's static tensors)."""
+    def _run_rows(self, bucket: int, collect_attention: bool,
+                  pack: np.ndarray, rows: Sequence[tuple], *,
+                  keep_out: bool = False) -> _Dispatch:
+        """Enqueue one dispatch of the host ``pack`` (:meth:`_pack_host`,
+        every slot 0): resolve each (host_row, cache_key) to a slab slot
+        (``engine.cache``; pad slots stay 0), upload the new rows and the
+        pack and write the slab (``engine.upload``), then the forward — the
+        bucket's graph when one is captured and no attention maps are asked
+        for, else eager — and the bundle's copy to pinned host memory
+        (``engine.replay``). Returns without waiting on the card.
+        ``keep_out`` keeps the model output (copied off the graph's static
+        tensors)."""
         if self.mesh is not None:
-            return self._mesh_run(bucket, collect_attention, text, rows,
+            return self._mesh_run(bucket, collect_attention, pack, rows,
                                   keep_out)
         self._row_slab()  # built outside the (non-reentrant) lock hold
         with self._dispatch_lock, torch.inference_mode(), \
                 self._stream_ctx():
             inserts: dict = {}
-            with self._input_cache_lock:
+            with obs.span("engine.cache") as sp, self._input_cache_lock:
+                hits, misses = (self._input_cache_hits,
+                                self._input_cache_misses)
                 self._pack_keys = set()  # keys this pack reads (hits too)
-                slots = []
-                for row, key in rows:
-                    slots.append(self._row_slot_locked(key, inserts, row))
+                for i, (row, key) in enumerate(rows):
+                    pack[i, -1] = self._row_slot_locked(key, inserts, row)
                     if key is not None:
                         self._pack_keys.add(key)
-            slots.extend([0] * (bucket - len(slots)))
-            parts = self._upload(inserts, self._pack_host(text, slots))
-            pack = parts[0]
-            if inserts:
-                self._write_slab(*parts[1:])
+                sp.set(hits=self._input_cache_hits - hits,
+                       misses=self._input_cache_misses - misses)
+            with obs.span("engine.upload", rows=len(inserts)):
+                parts = self._upload(inserts, pack)
+                if inserts:
+                    self._write_slab(*parts[1:])
             graph = (None if collect_attention
                      else self._graphs.get(bucket))
 
-            def forward():
-                if graph is None:
-                    return self._rows_step(pack, collect_attention)
-                graph.static_pack.copy_(pack)
-                graph.replay()
-                return graph.out, graph.flat, graph.spec
+            with obs.span("engine.replay", bucket=bucket,
+                          graph=graph is not None) as sp:
+                # Timing events only while the span records: engine.fetch
+                # reads them then, and an untimed event is cheaper.
+                timed = sp.recording and self._stream is not None
+                start = torch.cuda.Event(enable_timing=True) if timed else None
 
-            out, flat, spec = self._call_forward(forward)
-            if self._stream is None:
-                return _Dispatch(flat, spec, None, out if keep_out else None)
-            if keep_out:
-                out = _clone_output(out) if graph is not None else out
-            host = torch.empty(flat.shape, dtype=torch.float32,
-                               pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-            return _Dispatch(host, spec, event, out if keep_out else None)
+                def forward():
+                    if start is not None:
+                        start.record(self._stream)
+                    if graph is None:
+                        return self._rows_step(parts[0], collect_attention)
+                    graph.static_pack.copy_(parts[0])
+                    graph.replay()
+                    return graph.out, graph.flat, graph.spec
+
+                out, flat, spec = self._call_forward(forward)
+                if self._stream is None:
+                    return _Dispatch(flat, spec, None,
+                                     out if keep_out else None)
+                if keep_out:
+                    out = _clone_output(out) if graph is not None else out
+                host = torch.empty(flat.shape, dtype=torch.float32,
+                                   pin_memory=True)
+                host.copy_(flat, non_blocking=True)
+                event = torch.cuda.Event(enable_timing=timed)
+                event.record(self._stream)
+                return _Dispatch(host, spec, event,
+                                 out if keep_out else None, start)
 
     # ------------------------------------------------------------- the mesh
     # A dispatch's header, broadcast from rank 0 on the host over the idle
@@ -1304,13 +1332,14 @@ class InferenceEngine:
                   for p in maps) for maps in out.attn_data_list]
         return dataclasses.replace(out, **fields)
 
-    def _mesh_run(self, bucket: int, collect_attention: bool, text: dict,
-                  rows: Sequence[tuple], keep_out: bool) -> _Dispatch:
+    def _mesh_run(self, bucket: int, collect_attention: bool,
+                  pack: np.ndarray, rows: Sequence[tuple], keep_out: bool
+                  ) -> _Dispatch:
         """Rank 0's dispatch on a mesh (see :meth:`_mesh_exchange`)."""
         if world_axis(self.mesh).index != 0:
             raise RuntimeError("on a mesh only rank 0 dispatches; the other "
                                "ranks run follow()")
-        pack = torch.from_numpy(self._pack_host(text, [0] * bucket))
+        pack = torch.from_numpy(pack)
         header = torch.tensor([self._OP_FORWARD, bucket,
                                int(collect_attention), int(keep_out)])
         with self._dispatch_lock, torch.inference_mode(), \
@@ -1343,10 +1372,13 @@ class InferenceEngine:
                ) -> Tuple[ViLBertOutput, dict]:
         """Upload, trunk + heads + decode bundle on the device, and the one
         blocking fetch of the few-KB bundle → (device output, host bundle)."""
-        text = dict(input_ids=req.text.input_ids,
-                    segment_ids=req.text.segment_ids,
-                    input_mask=req.text.input_mask, task_ids=req.task_ids)
-        d = self._run_rows(req.bucket, collect_attention, text,
+        with obs.span("engine.pack"):
+            pack = self._pack_host(dict(
+                input_ids=req.text.input_ids,
+                segment_ids=req.text.segment_ids,
+                input_mask=req.text.input_mask, task_ids=req.task_ids),
+                [0] * req.bucket)
+        d = self._run_rows(req.bucket, collect_attention, pack,
                            self._request_rows(req), keep_out=True)
         return d.out, d.fetch()
 
@@ -1356,23 +1388,19 @@ class InferenceEngine:
 
         ``deadline`` (a :class:`resilience.Deadline`) is checked at entry:
         an expired budget raises :class:`DeadlineExceeded` before any
-        device work. ``forward_s`` spans pack, upload, forward and the
-        bundle fetch; decode is then pure host math."""
+        device work. The ``engine.forward`` span covers pack, upload,
+        forward and the bundle fetch; decode is then pure host math."""
         if deadline is not None and deadline.expired():
             raise DeadlineExceeded(
                 f"deadline expired {-deadline.remaining_s():.2f}s before "
                 f"dispatch (task {req.spec.task_id})")
-        t0 = time.perf_counter()
         with obs.span("engine.forward", bucket=req.bucket,
                       task_id=req.spec.task_id,
                       replica=self.replica_id or ""):
             out, bundle = self.bundle(req,
                                       collect_attention=collect_attention)
-        self.stage_times["forward_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         with obs.span("engine.decode", task_id=req.spec.task_id):
             result = self.decode(req, bundle)
-        self.stage_times["decode_s"] = time.perf_counter() - t0
         return out, result
 
     def run_many(self, reqs: Sequence[PreparedRequest], *,
@@ -1392,6 +1420,10 @@ class InferenceEngine:
         chunk k. ``on_result(pos, result)`` streams each member's decoded
         result as its chunk drains; exceptions from the callback
         propagate. ``deadline`` is checked once at entry.
+
+        Under its ``engine.run_many`` span each chunk opens ``engine.pack``,
+        ``engine.cache``, ``engine.upload``, ``engine.replay``,
+        ``engine.fetch`` and ``engine.decode``.
         """
         if not reqs:
             return []
@@ -1404,14 +1436,10 @@ class InferenceEngine:
         chunks = [[(pos, reqs[pos]) for pos in idxs] for idxs in plan]
         out: List[Optional[dec.TaskResult]] = [None] * len(reqs)
         pending: deque = deque()
-        dec_s = 0.0
-        t0 = time.perf_counter()
 
         def _drain_one() -> None:
-            nonlocal dec_s
             c, dispatch = pending.popleft()
             bundle = dispatch.fetch()
-            td = time.perf_counter()
             with obs.span("engine.decode", n_requests=len(c)):
                 row = 0
                 for pos, r in c:
@@ -1419,7 +1447,6 @@ class InferenceEngine:
                     row += r.n_images
                     if on_result is not None:
                         on_result(pos, out[pos])
-            dec_s += time.perf_counter() - td
 
         with obs.span("engine.run_many", replica=self.replica_id or "",
                       n_requests=len(reqs), n_chunks=len(chunks)):
@@ -1429,8 +1456,6 @@ class InferenceEngine:
                     _drain_one()
             while pending:
                 _drain_one()
-        self.stage_times["forward_s"] = time.perf_counter() - t0 - dec_s
-        self.stage_times["decode_s"] = dec_s
         return out
 
     def chunk_plan(self, image_counts: Sequence[int], *,
@@ -1490,29 +1515,31 @@ class InferenceEngine:
         """Pack one ≤max-bucket chunk and enqueue its forward. A request's
         rows (one per image, text replicated) stay consecutive, in request
         order; pad rows repeat the last row's text and read slab slot 0."""
-        spans = [(r, i) for r in reqs for i in range(r.n_images)]
-        bucket = self.cfg.engine.row_bucket_for(len(spans))
-        pad = bucket - len(spans)
+        with obs.span("engine.pack"):
+            spans = [(r, i) for r in reqs for i in range(r.n_images)]
+            bucket = self.cfg.engine.row_bucket_for(len(spans))
+            pad = bucket - len(spans)
 
-        def pack(rows, pad_row):
-            return np.stack(list(rows) + [pad_row] * pad, axis=0)
+            def stack(rows, pad_row):
+                return np.stack(list(rows) + [pad_row] * pad, axis=0)
 
-        last = reqs[-1]
-        text = dict(
-            input_ids=pack([r.text.input_ids[i] for r, i in spans],
-                           last.text.input_ids[-1]),
-            segment_ids=pack([r.text.segment_ids[i] for r, i in spans],
-                             last.text.segment_ids[-1]),
-            input_mask=pack([r.text.input_mask[i] for r, i in spans],
-                            last.text.input_mask[-1]),
-            task_ids=pack([r.task_ids[i] for r, i in spans],
-                          last.task_ids[-1]),
-        )
-        rows = [(dict(features=r.features[i], spatials=r.spatials[i],
-                      image_mask=r.image_mask[i]),
-                 r.cache_keys[i] if r.cache_keys is not None else None)
-                for r, i in spans]
-        return self._run_rows(bucket, False, text, rows)
+            last = reqs[-1]
+            text = dict(
+                input_ids=stack([r.text.input_ids[i] for r, i in spans],
+                                last.text.input_ids[-1]),
+                segment_ids=stack([r.text.segment_ids[i] for r, i in spans],
+                                  last.text.segment_ids[-1]),
+                input_mask=stack([r.text.input_mask[i] for r, i in spans],
+                                 last.text.input_mask[-1]),
+                task_ids=stack([r.task_ids[i] for r, i in spans],
+                               last.task_ids[-1]),
+            )
+            pack = self._pack_host(text, [0] * bucket)
+            rows = [(dict(features=r.features[i], spatials=r.spatials[i],
+                          image_mask=r.image_mask[i]),
+                     r.cache_keys[i] if r.cache_keys is not None else None)
+                    for r, i in spans]
+        return self._run_rows(bucket, False, pack, rows)
 
     # --------------------------------------------------------------- warmup
     def warmup(self, buckets: Optional[Sequence[int]] = None,
@@ -1591,8 +1618,6 @@ class InferenceEngine:
         if self.feature_store is None:
             raise RuntimeError("predict() needs a FeatureStore; use "
                                "prepare()+run() with in-memory regions instead")
-        t0 = time.perf_counter()
         req = self.prepare_from_store(task_id, question, image_paths)
-        self.stage_times["prepare_s"] = time.perf_counter() - t0
         _, result = self.run(req, collect_attention=collect_attention)
         return result

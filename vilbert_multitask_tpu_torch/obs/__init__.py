@@ -19,6 +19,8 @@ latencies.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 from vilbert_multitask_tpu_torch.obs.trace import (
     Span,
     Tracer,
@@ -41,7 +43,6 @@ from vilbert_multitask_tpu_torch.obs.export import (
     OPENMETRICS_CONTENT_TYPE,
     PROMETHEUS_CONTENT_TYPE,
     chrome_trace,
-    dump_trace,
     render_openmetrics,
     render_prometheus,
     start_profile,
@@ -99,12 +100,6 @@ from vilbert_multitask_tpu_torch.obs.fleet import (
     FleetSpine,
     default_spine_path,
 )
-from vilbert_multitask_tpu_torch.obs.ledger import (
-    append_entry as ledger_append,
-    check as ledger_check,
-    default_ledger_path,
-    read_entries as ledger_entries,
-)
 
 __all__ = [
     "Span", "Tracer", "current_trace_id", "default_tracer", "new_trace_id",
@@ -112,7 +107,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "REGISTRY",
     "log_buckets", "percentile",
     "OPENMETRICS_CONTENT_TYPE", "PROMETHEUS_CONTENT_TYPE", "chrome_trace",
-    "dump_trace", "render_openmetrics", "render_prometheus",
+    "render_openmetrics", "render_prometheus",
     "start_profile", "stop_profile",
     "COST_STAGES", "CostAttributor", "JobCost", "TraceStore",
     "get_attributor", "job_batch", "job_begin", "job_charge", "job_finish",
@@ -131,8 +126,7 @@ __all__ = [
     "WorkerIdentity", "mint_identity", "process_identity",
     "reset_process_identity",
     "FleetSpine", "default_spine_path",
-    "ledger_append", "ledger_check", "ledger_entries",
-    "default_ledger_path",
+    "SPAN_HISTOGRAM", "span_totals",
 ]
 
 SPAN_HISTOGRAM = REGISTRY.histogram(
@@ -237,6 +231,17 @@ TENANT_DEFICIT = REGISTRY.gauge(
     "negative means the tenant is consuming above its weighted share.",
     labelnames=("tenant",),
 )
+
+
+def span_totals() -> Dict[str, Tuple[float, int]]:
+    """``{span name: (sum ms, count)}`` of the ``vmt_span_ms`` histogram,
+    summed over its task label: two snapshots' difference is what the spans
+    of a stretch of work took, without reading the span ring."""
+    out: Dict[str, Tuple[float, int]] = {}
+    for (name, _task), series in SPAN_HISTOGRAM.collect().items():
+        total, count = out.get(name, (0.0, 0))
+        out[name] = (total + series["sum"], count + series["count"])
+    return out
 
 
 def _observe_span(s: Span) -> None:

@@ -7,9 +7,10 @@ the ``torch.profiler`` toggles behind ``POST /debug/profile/{start,stop}``.
   plus ``_sum``/``_count``. ``GET /metrics?format=prometheus`` serves it.
 - :func:`chrome_trace` renders a tracer's span ring as a Chrome-trace /
   Perfetto JSON document (``ph: "X"`` complete events, µs timestamps,
-  thread-name metadata) — ``GET /debug/trace`` serves it, and
-  :func:`dump_trace` writes it to a file for bench/smoke artifacts. Open
-  at https://ui.perfetto.dev (drag the file in) or chrome://tracing.
+  thread-name metadata) — ``GET /debug/trace`` serves it, on the clock of
+  the device trace ``/debug/profile`` writes, so the two lay over each
+  other. Open at https://ui.perfetto.dev (drag the file in) or
+  chrome://tracing.
 - :func:`start_profile`/:func:`stop_profile` wrap the existing device
   trace toggles (serve/metrics.py → ``torch.profiler``) with idempotence
   bookkeeping so the HTTP endpoints can't double-start a trace.
@@ -17,7 +18,6 @@ the ``torch.profiler`` toggles behind ``POST /debug/profile/{start,stop}``.
 
 from __future__ import annotations
 
-import json
 import math
 import os
 import re
@@ -175,16 +175,22 @@ def chrome_trace(spans: Optional[Sequence[Span]] = None,
                  limit: Optional[int] = None) -> Dict[str, Any]:
     """Chrome-trace JSON (``traceEvents``) of the newest ``limit`` spans.
 
-    Timestamps are µs relative to the tracer's monotonic epoch; ``ph: "X"``
-    complete events carry trace/span/parent ids and span attributes in
-    ``args``, so Perfetto's flow/search tooling can follow one trace_id
-    across the HTTP and worker threads.
+    Timestamps are in the frame ``torch.profiler``'s (Kineto's) device
+    trace is written in: Unix µs less the document's
+    ``baseTimeNanoseconds`` (here the tracer's anchor, whole seconds), so
+    ``ts + base`` is comparable across the two documents. Span starts go
+    to Unix time by the tracer's anchor (:meth:`Tracer.unix_ns`).
+    ``ph: "X"`` complete events carry trace/span/parent ids and span
+    attributes in ``args``, so Perfetto's flow/search tooling can follow
+    one trace_id across the HTTP and worker threads; ``tid`` is the OS
+    thread id, as in the device trace.
     """
     tracer = tracer if tracer is not None else default_tracer()
     if spans is None:
         spans = tracer.spans(limit=limit)
     elif limit:
         spans = list(spans)[-limit:]
+    base_ns = tracer.anchor_unix_ns // 10**9 * 10**9
     pid = os.getpid()
     thread_names: Dict[int, str] = {}
     events: List[Dict[str, Any]] = []
@@ -194,7 +200,7 @@ def chrome_trace(spans: Optional[Sequence[Span]] = None,
             "name": s.name,
             "ph": "X",
             "cat": "obs",
-            "ts": round((s.start_s - tracer.epoch_perf) * 1e6, 3),
+            "ts": round((tracer.unix_ns(s.start_s) - base_ns) / 1e3, 3),
             "dur": round(s.dur_s * 1e6, 3),
             "pid": pid,
             "tid": s.thread_id,
@@ -204,16 +210,8 @@ def chrome_trace(spans: Optional[Sequence[Span]] = None,
     meta = [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
              "args": {"name": tname}}
             for tid, tname in sorted(thread_names.items())]
-    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
-
-
-def dump_trace(path: str, tracer: Optional[Tracer] = None,
-               limit: Optional[int] = None) -> str:
-    """Write the span ring as a Chrome-trace JSON file; returns ``path``."""
-    doc = chrome_trace(tracer=tracer, limit=limit)
-    with open(path, "w", encoding="utf-8") as f:
-        json.dump(doc, f)
-    return path
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+            "baseTimeNanoseconds": base_ns}
 
 
 # -------------------------------------------------------- profile toggles

@@ -81,6 +81,9 @@ class ServeApp:
                  engine_factory: Optional[Callable[[], Any]] = None,
                  device: str = "cuda"):
         self.cfg = cfg or FrameworkConfig()
+        # A server records its spans (a tracer starts disabled): /metrics'
+        # vmt_span_ms, /debug/trace and the trace store read them.
+        obs.default_tracer().enable()
         # The kernel-library cache (engine/aotcache.py), as the JAX app
         # places its AOT cache: next to the checkpoint, where a prewarm
         # step fills it and every replica host mounts it, else under

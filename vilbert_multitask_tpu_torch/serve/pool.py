@@ -190,10 +190,6 @@ class ReplicaPool:
     def kernel_fallback(self) -> bool:
         return bool(getattr(self._host, "kernel_fallback", False))
 
-    @property
-    def stage_times(self):
-        return self._host.stage_times
-
     def prepare(self, *args, **kwargs):
         return self._host.prepare(*args, **kwargs)
 

@@ -270,6 +270,7 @@ def main(argv=None) -> None:
 
     identity = obs.process_identity("remote-worker")
     obs.REGISTRY.set_default_labels(**identity.labels())
+    obs.default_tracer().enable()  # a server records its spans (ServeApp)
     obs.default_tracer().set_default_attrs(
         instance=identity.ident, role=identity.role)
     cfg = FrameworkConfig()
