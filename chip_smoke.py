@@ -36,7 +36,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    level boundaries, off the canvas, of zero area, each level alone, with
    sqrt(area)/224 exactly 1, 2 and 4 and 1 and 8 ulps either side (the
    kernel chooses the level), and on map views of 255 channels and of a
-   base 4 bytes off (the scalar instance); ``int8_linear`` in
+   base 4 bytes off (the scalar instance), all on channels-last maps; the
+   serving shape, the edge boxes and 255 channels also on NCHW maps (the
+   NCHW instance, which the extractor runs), each bit-equal to the
+   channels-last instance on the same values; ``int8_linear`` in
    bf16 (atol 1e-2 + rtol 1e-2) and f32 (2e-5 x max(1, |ref|)) at every
    (N, K) of the full-width forward at M = 38·{1, 32} and 101·{1, 32}, at
    the shapes of a bucket-1 and a bucket-32 forward, at the edges (M = 1,
@@ -83,10 +86,14 @@ detect. the detector at full width (``LiveFeatureExtractor(DetectorConfig())``,
    and class scores spread (not saturated, not tied); the same images
    through the plain kernel versions on the same convolutions: identical
    proposals and kept indices, fc6 within the ``roi_align`` tolerance;
-   device time per image (CUDA events, p50 of 12 warm runs), the
+   ``roi_align`` on the FPN's NCHW maps bit-equal to channels-last copies
+   of them; device time per image (CUDA events, p50 of 12 warm runs), the
    extraction's wall time, a ``torch.profiler`` split by stage (backbone,
    FPN, RPN + nms, roi_align, box head, selection, preprocessing, host
-   copy), and TF32 convolutions against f32 in turns;
+   copy) and its count of cuDNN's layout conversions (must be 0: the f32
+   extractor runs NCHW), the backbone and FPN by layout and precision
+   with each one's peak memory, and TF32 convolutions against f32 in
+   turns;
 4. main path: ``InferenceEngine(device="cuda")`` at the full serving config
    (``ViLBertConfig()`` + ``EngineConfig()``: bf16 compute, fused heads) on
    seeded random weights answers one request per decode family through
@@ -328,6 +335,9 @@ INT8_COLD_MAX_COPIES = 256
 # Per extracted image: one NMS call for the 5 RPN levels, one for the
 # per-class selection, one ROIAlign call.
 NMS_PER_IMAGE, ROI_PER_IMAGE = 2, 1
+# cuDNN's layout conversions around a convolution whose kernel wants the
+# other layout; none runs in the f32 extractor, whose tensors are NCHW.
+LAYOUT_CONVERSION = re.compile(r"nchwToNhwc|nhwcToNchw")
 # Seeded RGB images for the detector (name, height, width): upscaled,
 # unscaled-ish, the reference's 800/1333 contract, downscaled.
 DETECT_IMAGES = (("small 160x120", 120, 160), ("640x480", 480, 640),
@@ -457,7 +467,7 @@ def kernel_build_notes(_build, name: str) -> list:
     out = []
     for mangled, rec in sorted(notes.items()):
         m = re.search(r"(flash_attn_(?:bf16|f32)_kernel|nms_[a-z_]+_kernel|"
-                      r"roi_align_kernel|"
+                      r"roi_align_(?:nchw_)?kernel|"
                       r"int8_linear_(?:bf16_stream|bf16_wgmma|f32)_kernel)"
                       r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
         args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
@@ -1244,13 +1254,15 @@ def check_nms(torch, report: dict) -> dict:
 
 
 def roi_maps(torch, dev, canvas: int = 1344, channels: int = 256):
-    """Seeded P2..P5 maps of the serving canvas as the FPN leaves them
-    (channels-last NCHW) and their (H, W, C) views."""
+    """Seeded P2..P5 maps of the serving canvas: the (H, W, C) views of the
+    contiguous NCHW tensors the FPN leaves, and of channels-last copies of
+    the same values (the layout the FPN left before)."""
     gen = torch.Generator().manual_seed(4)
     nchw = [torch.randn(1, channels, canvas // s, canvas // s, generator=gen)
             .to(dev).contiguous(memory_format=torch.channels_last)
             for s in (4, 8, 16, 32)]
-    return nchw, [t.permute(0, 2, 3, 1)[0] for t in nchw]
+    cl = [t.permute(0, 2, 3, 1)[0] for t in nchw]
+    return [t.contiguous().permute(0, 2, 3, 1)[0] for t in nchw], cl
 
 
 def level_boundary_boxes():
@@ -1287,8 +1299,10 @@ def level_boundary_boxes():
 def roi_cases(torch, dev):
     """(what, boxes, maps): the serving shape (300 proposals over every
     level) first, then the edges; ``maps`` names the level-map views
-    :func:`check_roi_align` reads them from ("full": the FPN's maps, float4
-    loads; the others are views the scalar instance reads)."""
+    :func:`check_roi_align` reads them from ("full": channels-last maps,
+    float4 loads; "C 255" and "offset": views the scalar channels-last
+    instance reads; "nchw": the FPN's maps, the NCHW instance with 16-byte
+    stores; "nchw C 255": its scalar stores)."""
     gen = torch.Generator().manual_seed(5)
     xy = torch.rand(300, 2, generator=gen) * torch.tensor([1333.0, 800.0])
     side = torch.exp(torch.log(torch.tensor(8.0)) + torch.rand(
@@ -1316,6 +1330,12 @@ def roi_cases(torch, dev):
                   "C 255"))
     cases.append(("serving boxes, maps' channels 1..252 (base 4 bytes off)",
                   serving, "offset"))
+    cases.append(("serving, NCHW maps: 300 proposals over P2..P5", serving,
+                  "nchw"))
+    cases.append(("level boundaries, off the canvas edge, zero area, NCHW "
+                  "maps", edges, "nchw"))
+    cases.append(("serving boxes, NCHW maps' channels 1..255 (C 255)",
+                  serving, "nchw C 255"))
     return [(what, b.to(dev), maps) for what, b, maps in cases]
 
 
@@ -1353,33 +1373,49 @@ def roi_bound_ms(torch, dm, views, boxes, res, sampling) -> tuple:
 
 def check_roi_align(torch, report: dict) -> dict:
     """K2 against its plain version on the card at the serving shape and
-    the edges (|d| <= 1e-5 + 1e-5 |plain|); the serving shape's times.
-    Returns the serving row."""
+    the edges (|d| <= 1e-5 + 1e-5 |plain|), in both layouts; each NCHW
+    case bit-equal to the channels-last instance on the same values; the
+    serving shape's times in both. Returns the served (NCHW) serving
+    row."""
     from vilbert_multitask_tpu_torch.detect import model as dm
 
     dev = torch.device("cuda")
-    _, full = roi_maps(torch, dev)
+    nchw, full = roi_maps(torch, dev)
     maps_by_name = {"full": full, "C 255": [v[..., 1:] for v in full],
-                    "offset": [v[..., 1:253] for v in full]}
+                    "offset": [v[..., 1:253] for v in full],
+                    "nchw": nchw, "nchw C 255": [v[..., 1:] for v in nchw]}
+    # the channels-last views holding the same values as each NCHW case's
+    twins = {"nchw": full, "nchw C 255": maps_by_name["C 255"]}
     strides = dm.FPN_STRIDES[:4]
     res, sampling = 7, 2
     rows = []
     for what, boxes, maps in roi_cases(torch, dev):
         views = maps_by_name[maps]
         vec = dm.roi_vector_width(views)
-        if vec != (4 if maps == "full" else 1):
-            raise AssertionError(f"roi_align {what}: vector width {vec}")
+        layout = dm.roi_layout(views)
+        if (vec, layout) != ((4 if maps in ("full", "nchw") else 1),
+                             "nchw" if maps in twins else "channels_last"):
+            raise AssertionError(f"roi_align {what}: vector width {vec}, "
+                                 f"layout {layout}")
         got = dm.roi_align(views, boxes, strides, res, sampling)
         ref = dm.roi_align_plain(views, boxes, strides, res, sampling)
+        twin = (dm.roi_align(twins[maps], boxes, strides, res, sampling)
+                if maps in twins else None)
         torch.cuda.synchronize()
         err = (got - ref).abs()
         used = (err / (ROI_ATOL + ROI_RTOL * ref.abs())).max().item()
         levels = torch.bincount(dm.fpn_level(boxes), minlength=4).tolist()
         row = dict(what=what, R=boxes.shape[0], C=views[0].shape[-1],
-                   vector_width=vec, levels=levels,
+                   layout=layout, vector_width=vec, levels=levels,
                    max_abs_err=err.max().item(),
                    max_rel_err=(err / ref.abs().clamp_min(1e-3)).max().item(),
                    tol_used=used, bit_equal=bool(err.max().item() == 0.0))
+        if twin is not None:
+            row["bit_equal_to_channels_last"] = torch.equal(got, twin)
+            if not row["bit_equal_to_channels_last"]:
+                raise AssertionError(
+                    f"roi_align {what}: the NCHW instance differs from the "
+                    f"channels-last one by {(got - twin).abs().max().item()}")
         if what.startswith("serving"):
             row["kernel_ms"] = device_ms(
                 lambda: dm.roi_align(views, boxes, strides, res, sampling))
@@ -1391,10 +1427,10 @@ def check_roi_align(torch, report: dict) -> dict:
             row["bound_ms"], row["bound_by"] = roi_bound_ms(
                 torch, dm, views, boxes, res, sampling)
         rows.append(row)
-        log("roi_align %s: R=%d C=%d per level %s, %d channels a thread, "
+        log("roi_align %s: R=%d C=%d per level %s, %s, vector width %d, "
             "max abs err %.3e (%.3f of atol 1e-5 + rtol 1e-5)%s" % (
-                what, row["R"], row["C"], levels, vec, row["max_abs_err"],
-                used,
+                what, row["R"], row["C"], levels, layout, vec,
+                row["max_abs_err"], used,
                 "" if "kernel_ms" not in row else
                 " | kernel_ms=%.5f (eager call %.5f) plain_ms=%.5f "
                 "bound_ms=%.6f (%s)" % (row["kernel_ms"],
@@ -1404,11 +1440,12 @@ def check_roi_align(torch, report: dict) -> dict:
         if not used <= 1.0:
             raise AssertionError(f"roi_align kernel error {err.max().item():.3e}"
                                  f" beyond atol 1e-5 + rtol 1e-5 ({what})")
-        if what.startswith("serving:") and not row["bit_equal"]:
+        if what.startswith("serving") and "proposals" in what \
+                and not row["bit_equal"]:
             raise AssertionError(f"roi_align serving shape not bit-equal to "
                                  f"the plain version: {row['max_abs_err']}")
     report["roi_align_cases"] = rows
-    return rows[0]
+    return next(r for r in rows if r["layout"] == "nchw")
 
 
 # ------------------------------------------------------- phase 3: int8_linear
@@ -1846,57 +1883,67 @@ def profile_split(torch, ex, rgb) -> dict:
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     handwritten = {k: v[0] for k, v in by_name.items() if re.search(
-        r"nms_[a-z_]+_kernel|roi_align_kernel", k)}
+        r"nms_[a-z_]+_kernel|roi_align_(?:nchw_)?kernel", k)}
+    conversions = {k: v[1] for k, v in by_name.items()
+                   if LAYOUT_CONVERSION.search(k)}
     return {"split_ms": dict(split), "device_busy_ms": busy,
             "profiled_wall_ms": wall_ms,
             "device_ops": sum(v[1] for v in by_name.values()),
+            "layout_conversions": conversions,
             "handwritten_kernels_ms": handwritten,
             "top_kernels": [{"name": k[:120], "ms": v[0], "n": v[1]}
                             for k, v in top]}
 
 
-def layout_probe(torch, ex, rgb) -> dict:
+def layout_probe(torch, ex, rgb) -> tuple:
     """Device time of the backbone and FPN (the detector's convolutions)
-    on one image, with the model and its input in channels-last (as the
-    extractor runs them) or in contiguous NCHW, and cuDNN's TF32 off or
-    on: CUDA events, 6 timed runs of each after a warm-up, the four
-    settings in turns. The
-    extractor is not changed; an NCHW copy of its model is made here."""
+    on one image, with the model and its input in contiguous NCHW (as the
+    f32 extractor ``ex`` runs them) or in channels-last (as the TF32
+    extractor runs them), and cuDNN's TF32 off or on:
+    CUDA events, 6 timed runs of each after a warm-up, the four settings in
+    turns; and each setting's peak of ``torch.cuda.max_memory_allocated``
+    over its runs, less what was allocated before them (MiB). The extractor
+    is not changed; a channels-last copy of its model is made here.
+    Returns (ms, peak MiB), each by ``<layout>/<f32|tf32>``."""
     import copy
 
     from vilbert_multitask_tpu_torch.features.extract import preprocess_image
 
     cfg = ex.cfg
-    nchw_model = copy.deepcopy(ex.model).to(
-        memory_format=torch.contiguous_format)
-    times = {}
+    cl_model = copy.deepcopy(ex.model).to(memory_format=torch.channels_last)
+    times, peaks = {}, {}
     with torch.inference_mode():
         bgr, _ = preprocess_image(torch.from_numpy(rgb).to(ex.device))
         padded = torch.zeros((cfg.canvas, cfg.canvas, 3), device=ex.device)
         padded[:bgr.shape[0], :bgr.shape[1]] = bgr
-        inputs = {"channels_last": (ex.model, padded.permute(2, 0, 1)[None]),
-                  "nchw": (nchw_model,
+        inputs = {"channels_last": (cl_model, padded.permute(2, 0, 1)[None]),
+                  "nchw": (ex.model,
                            padded.permute(2, 0, 1)[None].contiguous())}
         for rnd in range(4):  # a warm-up round, then 3 timed ones
-            for layout in ("channels_last", "nchw", "nchw", "channels_last"):
+            for layout in ("nchw", "channels_last", "channels_last", "nchw"):
                 model, x = inputs[layout]
                 for tf32 in (False, True):
+                    key = f"{layout}/{'tf32' if tf32 else 'f32'}"
                     with torch.backends.cudnn.flags(
                             enabled=True, benchmark=False,
                             deterministic=False, allow_tf32=tf32):
+                        torch.cuda.synchronize()
+                        base = torch.cuda.memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
                         start = torch.cuda.Event(enable_timing=True)
                         end = torch.cuda.Event(enable_timing=True)
                         start.record()
                         model.fpn(model.backbone(x))
                         end.record()
                         end.synchronize()
+                        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
                     if rnd:
-                        times.setdefault(
-                            f"{layout}/{'tf32' if tf32 else 'f32'}",
-                            []).append(start.elapsed_time(end))
-    del nchw_model
+                        times.setdefault(key, []).append(
+                            start.elapsed_time(end))
+                        peaks[key] = max(peaks.get(key, 0.0), peak)
+    del cl_model
     torch.cuda.empty_cache()
-    return times
+    return times, peaks
 
 
 def host_probe(torch, ex, rgb, runs: int = 5) -> dict:
@@ -2021,6 +2068,14 @@ def check_detect(torch, report: dict) -> dict:
             p = detector_pieces(torch, ex, rgb)
             p_on_k = nm.select_top_regions(k["props"], k["cls"],
                                            num_keep=ex.num_keep)[0]
+        # ROIAlign on the FPN's own maps: the NCHW views it reads in place
+        # against channels-last copies of them (the other instance).
+        maps = [f.permute(0, 2, 3, 1)[0] for f in k["feats"][:dm.ROI_LEVELS]]
+        args = (k["props"], dm.FPN_STRIDES[:dm.ROI_LEVELS],
+                cfg.roi_resolution, cfg.roi_sampling)
+        roi_layouts_equal = torch.equal(
+            dm.roi_align(maps, *args),
+            dm.roi_align([m.contiguous() for m in maps], *args))
         fc6_err = (k["fc6"] - p["fc6"]).abs()
         fc6_used = (fc6_err / (ROI_ATOL + ROI_RTOL * p["fc6"].abs())
                     ).max().item()
@@ -2028,7 +2083,8 @@ def check_detect(torch, report: dict) -> dict:
             proposals=torch.equal(k["props"], p["props"]),
             proposal_scores=torch.equal(k["pscores"], p["pscores"]),
             kept=torch.equal(k["keep"], p["keep"]),
-            selection_on_same_scores=torch.equal(k["keep"], p_on_k))
+            selection_on_same_scores=torch.equal(k["keep"], p_on_k),
+            roi_align_nchw_as_channels_last=roi_layouts_equal)
         ps, cls = k["pscores"], k["cls"]
         live = ps[ps > 0]
         spread = dict(
@@ -2074,15 +2130,20 @@ def check_detect(torch, report: dict) -> dict:
         f" on {report['device']['nvidia_smi']}")
     log("detect: top kernels " + json.dumps(split["top_kernels"][:6])
         + "; hand-written kernels (profiled) "
-        + json.dumps(split["handwritten_kernels_ms"]))
+        + json.dumps(split["handwritten_kernels_ms"])
+        + "; layout conversions (profiled) "
+        + json.dumps(split["layout_conversions"]))
     launch_bound = host_probe(torch, ex, images[2])
     log("detect: forward of the 1333x800 image, host time to enqueue "
         "against device time on the extractor's stream (median of 5): "
         + json.dumps(launch_bound))
-    layouts = layout_probe(torch, ex, images[2])
+    layouts, layout_peaks = layout_probe(torch, ex, images[2])
     log("detect: backbone + FPN device ms by memory format and cuDNN "
-        "precision (1333x800 image, median of 6, in turns): " + json.dumps(
-            {k: round(statistics.median(v), 3) for k, v in layouts.items()}))
+        "precision (1333x800 image, median of 6, in turns; the extractor "
+        "runs nchw/f32, its TF32 path channels_last/tf32): " + json.dumps(
+            {k: round(statistics.median(v), 3) for k, v in layouts.items()})
+        + "; peak MiB over what was allocated before: "
+        + json.dumps({k: round(v, 1) for k, v in layout_peaks.items()}))
     # TF32 against full f32, in one call, in turns: f32, tf32, tf32, f32.
     ex32 = LiveFeatureExtractor(cfg, device="cuda", allow_tf32=True)
     ex32.warmup()
@@ -2106,10 +2167,14 @@ def check_detect(torch, report: dict) -> dict:
         "init_s": init_s, "warmup_s": warm_s, "images": per_image,
         "launches": total, "timing": timing, "profile": split,
         "tf32": {"device_p50_ms": turns, "kept_box_overlap": overlap},
-        "layout_probe_ms": layouts, "host_probe_ms": launch_bound,
+        "layout_probe_ms": layouts, "layout_probe_peak_mib": layout_peaks,
+        "host_probe_ms": launch_bound,
         "precision": "f32 (cuDNN allow_tf32=False)"}
     del ex
     torch.cuda.empty_cache()
+    if split["layout_conversions"]:
+        raise AssertionError(f"detect: cuDNN converted layouts in the f32 "
+                             f"extractor: {split['layout_conversions']}")
     return total
 
 

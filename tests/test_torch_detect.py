@@ -183,21 +183,32 @@ def test_fpn_level_matches_jax_at_the_power_of_two_boundaries():
     assert set(got.tolist()) == {1, 2, 3}
 
 
-def _serving_views(channels: int = 8):
-    """(H, W, C) views of channels-last level maps of a 64 canvas."""
-    return [torch.zeros(1, channels, 64 // s, 64 // s).contiguous(
-        memory_format=torch.channels_last).permute(0, 2, 3, 1)[0]
+def _serving_views(channels: int = 8, canvas: int = 64,
+                   layout: str = "channels_last", make=torch.zeros):
+    """(H, W, C) views of level maps of a canvas: of channels-last NCHW
+    tensors, or of contiguous NCHW ones (what the FPN leaves)."""
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    return [make(1, channels, canvas // s, canvas // s).contiguous(
+        memory_format=fmt).permute(0, 2, 3, 1)[0]
         for s in pmodel.FPN_STRIDES[:4]]
 
 
-@pytest.mark.parametrize("case,width", [
-    ("channels_last_c8", 4), ("contiguous_c12", 4),
-    ("c_7", 1), ("channels_1_to_7", 1), ("base_4_bytes_off", 1),
-    ("column_stride_6", 1)])
-def test_roi_vector_width_follows_shape_and_address(case, width):
-    """The float4 instance only where every map's C, base and row and
-    column strides allow 16-byte loads; else the scalar one. Needs no
-    card."""
+@pytest.mark.parametrize("case,width,layout", [
+    ("channels_last_c8", 4, "channels_last"),
+    ("contiguous_c12", 4, "channels_last"),
+    ("c_7", 1, "channels_last"), ("channels_1_to_7", 1, "channels_last"),
+    ("base_4_bytes_off", 1, "channels_last"),
+    ("column_stride_6", 1, "channels_last"),
+    ("nchw_1344", 4, "nchw"), ("nchw_1344_c_255", 1, "nchw"),
+    ("nchw_1344_base_4_bytes_off", 4, "nchw")])
+def test_roi_vector_width_follows_shape_and_address(case, width, layout):
+    """Channels-last maps: the float4 instance only where every map's C,
+    base and row and column strides allow 16-byte loads; else the scalar
+    one. NCHW maps (the 1344 canvas's FPN maps, 256 channels; read a float
+    at a time wherever they lie): 16-byte stores of the means where
+    C % 4 == 0. The layout from the strides alone. Needs no card (the
+    1344 maps are allocated, never written or read)."""
     maps = {
         "channels_last_c8": lambda: _serving_views(8),
         "contiguous_c12": lambda: [torch.zeros(8, 8, 12) for _ in range(4)],
@@ -206,16 +217,25 @@ def test_roi_vector_width_follows_shape_and_address(case, width):
         "base_4_bytes_off": lambda: [v[..., 1:5] for v in _serving_views(8)],
         "column_stride_6": lambda: [torch.zeros(8, 8, 6)[..., :4]
                                     for _ in range(4)],
+        "nchw_1344": lambda: _serving_views(256, 1344, "nchw", torch.empty),
+        "nchw_1344_c_255": lambda: [v[..., 1:] for v in _serving_views(
+            256, 1344, "nchw", torch.empty)],
+        "nchw_1344_base_4_bytes_off": lambda: [v[1:, 1:, 4:] for v in (
+            _serving_views(260, 1344, "nchw", torch.empty))],
     }[case]()
+    assert pmodel.roi_layout(maps) == layout
     assert pmodel.roi_vector_width(maps) == width
 
 
 @pytest.mark.parametrize("bad", ["float64", "samples_65", "sampling_0",
-                                 "boxes_65536", "channels_strided"])
+                                 "boxes_65536", "channels_strided",
+                                 "columns_strided", "layouts_mixed"])
 def test_roi_launch_check_rejects_what_the_kernel_cannot_take(bad):
     """What the CUDA branch refuses before any launch: another dtype, more
     than 64 sample points an axis, a grid row per box past 65535, level
-    maps without contiguous channels. Needs no card."""
+    maps with neither contiguous channels nor contiguous columns (a
+    channels-last map, or an NCHW one, read every other channel or column),
+    and maps of both layouts in one call. Needs no card."""
     maps, boxes, res, samp = _serving_views(), torch.zeros(3, 4), 7, 2
     if bad == "float64":
         boxes = boxes.double()
@@ -225,29 +245,48 @@ def test_roi_launch_check_rejects_what_the_kernel_cannot_take(bad):
         samp = 0
     elif bad == "boxes_65536":
         boxes = torch.zeros(1, 4).expand(65536, 4)
-    else:
+    elif bad == "channels_strided":
         maps = [torch.zeros(8, 8, 16)[..., ::2] for _ in range(4)]
+    elif bad == "columns_strided":
+        maps = [v[:, ::2] for v in _serving_views(layout="nchw")]
+    else:
+        maps = _serving_views()[:2] + _serving_views(layout="nchw")[2:]
+    if bad in ("channels_strided", "columns_strided", "layouts_mixed"):
+        assert pmodel.roi_layout(maps) is None
     with pytest.raises((TypeError, ValueError)):
         pmodel._check_launchable_roi(maps, boxes, res, samp)
 
 
-def test_roi_launch_check_accepts_the_serving_shape():
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_roi_launch_check_accepts_the_serving_shape(layout):
     """300 proposals, 7 x 7 bins, sampling 2, the 1344 canvas's P2..P5
-    views at 256 channels (shapes only: the maps are never read)."""
-    maps = [torch.empty(1344 // s, 1344 // s, 256)
-            for s in pmodel.FPN_STRIDES[:4]]
+    views at 256 channels, channels-last and as the FPN leaves them
+    (contiguous NCHW): shapes only, the maps are never read."""
+    if layout == "channels_last":
+        maps = [torch.empty(1344 // s, 1344 // s, 256)
+                for s in pmodel.FPN_STRIDES[:4]]
+    else:
+        maps = _serving_views(256, 1344, "nchw", torch.empty)
     pmodel._check_launchable_roi(maps, torch.zeros(300, 4), 7, 2)
+    assert pmodel.roi_layout(maps) == layout
     assert pmodel.roi_vector_width(maps) == 4
 
 
-def test_roi_align_reads_channels_last_maps_in_place():
-    """The FPN's channels-last NCHW maps, permuted to (H, W, C), are views
-    (no copy) and pool the same as contiguous copies."""
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_roi_align_reads_channels_last_maps_in_place(layout):
+    """The FPN's NCHW maps, contiguous (as it leaves them) or channels-last,
+    permuted to (H, W, C), are views (no copy) and pool bit-equal to
+    contiguous copies."""
     maps, boxes = _roi_inputs(5)
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
     nchw = [torch.from_numpy(m).permute(2, 0, 1)[None].contiguous(
-        memory_format=torch.channels_last) for m in maps]
+        memory_format=fmt) for m in maps]
     views = [t.permute(0, 2, 3, 1)[0] for t in nchw]
-    assert all(v.is_contiguous() for v in views)
+    assert all(v.data_ptr() == t.data_ptr() for v, t in zip(views, nchw))
+    assert all(v.is_contiguous() == (layout == "channels_last")
+               for v in views)
+    assert pmodel.roi_layout(views) == layout
     a = pmodel.roi_align(views, torch.from_numpy(boxes),
                          pmodel.FPN_STRIDES[:4], 3, 2)
     b = pmodel.roi_align([torch.from_numpy(m) for m in maps],
@@ -280,7 +319,10 @@ def test_preprocess_within_one_level_of_pil(hw):
         assert share < 0.05
 
 
-def test_forward_matches_jax(params, jax_extractor):
+@pytest.mark.parametrize("layout", ["served", "channels_last"])
+def test_forward_matches_jax(params, jax_extractor, layout):
+    """The model as the extractor serves it (contiguous NCHW weights and
+    maps) and moved to channels-last: both the JAX forward."""
     img, hw = canvas_input(0)
     want = [np.asarray(x) for x in jax_extractor._fwd(
         jax_extractor.params, jnp.asarray(img), jnp.asarray(hw))]
@@ -288,7 +330,9 @@ def test_forward_matches_jax(params, jax_extractor):
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
                            pconvert.from_flax_params(params, PCFG).items()},
                           strict=True)
-    model = model.to(memory_format=torch.channels_last).eval()
+    if layout == "channels_last":
+        model = model.to(memory_format=torch.channels_last)
+    model = model.eval()
     with torch.inference_mode():
         got = [x.numpy() for x in model(torch.from_numpy(img),
                                         tuple(float(v) for v in hw))]
@@ -298,6 +342,43 @@ def test_forward_matches_jax(params, jax_extractor):
     # the scores spread: not saturated at 0 / 1, not all tied
     assert len(np.unique(got[1])) > got[1].size // 2
     assert 0.01 < got[1].max() < 0.99
+
+
+@pytest.mark.parametrize("allow_tf32", [False, True], ids=["f32", "tf32"])
+def test_extractor_runs_the_layout_its_precision_reads(params, allow_tf32):
+    """In f32 (as served) the extractor's model holds contiguous weights,
+    ``features()`` returns contiguous NCHW maps (P6 a stride-2 view of P5)
+    and the box head's (H, W, C) views of P2..P5 are what ROIAlign's NCHW
+    instance reads in place; with TF32 all of it is channels-last. Both
+    forwards give the same result on the CPU."""
+    ex = LiveFeatureExtractor(
+        PCFG, params=pconvert.from_flax_params(params, PCFG), num_keep=10,
+        device="cpu", allow_tf32=allow_tf32)
+    fmt = torch.channels_last if allow_tf32 else torch.contiguous_format
+    model = ex.model
+    assert model.memory_format == fmt
+    convs = [m.weight for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    assert convs and all(w.is_contiguous(memory_format=fmt) for w in convs)
+    assert all(p.is_contiguous() for p in model.parameters()
+               if p.dim() != 4)
+    img, hw = canvas_input(1)
+    with torch.inference_mode():
+        feats = model.features(torch.from_numpy(img))
+        out = ex.forward(torch.from_numpy(img[:int(hw[0]), :int(hw[1])]),
+                         tuple(float(v) for v in hw))
+        want = model(torch.from_numpy(img), tuple(float(v) for v in hw))
+    assert len(feats) == 5
+    for f in feats[:4]:
+        assert f.dim() == 4 and f.shape[0] == 1
+        assert f.is_contiguous(memory_format=fmt)
+        assert f.is_contiguous() == (not allow_tf32)
+    assert torch.equal(feats[4], feats[3][:, :, ::2, ::2])
+    views = [f.permute(0, 2, 3, 1)[0] for f in feats[:4]]
+    assert pmodel.roi_layout(views) == ("channels_last" if allow_tf32
+                                        else "nchw")
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)
 
 
 def test_extract_array_matches_jax_extractor(jax_extractor, port_extractor):

@@ -8,9 +8,13 @@ worker.py:78-89,192-193. The same graph, on the same fixed canvas:
 - the public function keeps JAX's layout: :meth:`FasterRCNN.forward` takes
   a ``(canvas, canvas, 3)`` BGR mean-subtracted image and its valid
   ``(h, w)`` and returns ``(proposals (R, 4), cls (R, C), fc6 (R, D))``.
-  Inside, NCHW tensors run in ``torch.channels_last`` memory format (the
-  (H, W, 3) canvas is one already, viewed as NCHW), so cuDNN gets its fast
-  layout and ROIAlign reads each level map as (H, W, C) without a copy;
+  Inside, tensors are NCHW in the memory format the weights were moved to
+  (:attr:`FasterRCNN.memory_format`; the input is made one by a single
+  copy, none where the caller wrote the canvas so): contiguous NCHW for
+  f32 with TF32 off, whose cuDNN kernels are NCHW ones, and channels-last
+  for TF32, whose kernels are NHWC ones (detect/extractor.py chooses), so
+  no layout conversion runs around a convolution. ROIAlign reads each
+  level map as an (H, W, C) view without a copy, in either layout;
 - frozen BatchNorm is the affine ``x * scale + bias``; grouped convs are
   ``groups=32``; Flax's padding is carried exactly: ``padding=1``/``3``
   symmetric, the 1×1 convs unpadded (Flax's ``SAME`` pads nothing for a
@@ -36,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -297,26 +301,45 @@ def _bind_roi(lib: ctypes.CDLL):
     fn = lib.vmt_roi_align
     if fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, i64, i64, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-ROI_VECTOR_BYTES = 16  # the float4 instance's load and store
+ROI_VECTOR_BYTES = 16  # the float4 loads and stores
 ROI_MAX_SAMPLES = 64  # resolution * sampling per axis (csrc/roi_align.cu)
 ROI_MAX_BOXES = 65535  # one grid row of blocks per box
 _INT32_LIMIT = 2 ** 31 - 1  # the kernel's 32-bit indices
 
 
+def roi_layout(feats: Sequence[torch.Tensor]) -> Optional[str]:
+    """The layout ``csrc/roi_align.cu`` reads these (H, W, C) level maps
+    in, from their strides alone: ``"channels_last"`` where every map's
+    channels are contiguous, else ``"nchw"`` where every map's columns
+    are (an NCHW tensor permuted to (H, W, C)), else None (no instance
+    reads them). Needs no card."""
+    if all(f.stride(2) == 1 for f in feats):
+        return "channels_last"
+    if all(f.stride(1) == 1 for f in feats):
+        return "nchw"
+    return None
+
+
 def roi_vector_width(feats: Sequence[torch.Tensor]) -> int:
-    """Channels per thread of ``csrc/roi_align.cu`` for these (H, W, C)
-    level maps, from their shapes and addresses alone: 4 (16-byte loads)
-    when C % 4 == 0 and every map's base, row and column strides lie on
-    16 bytes, else 1 (the scalar instance). Needs no card."""
+    """Floats a 16-byte access of ``csrc/roi_align.cu`` carries for these
+    (H, W, C) level maps, from their shapes and addresses alone, else 1
+    (scalar accesses). Channels-last maps: 4 (the float4 instance) when
+    C % 4 == 0 and every map's base, row and column strides lie on 16
+    bytes. NCHW maps, read a float at a time: 4 (16-byte stores of the
+    staged means) when C % 4 == 0. Needs no card."""
     step = ROI_VECTOR_BYTES // 4
+    if feats[0].shape[-1] % step:
+        return 1
+    if roi_layout(feats) == "nchw":
+        return step
     for f in feats:
-        if (f.shape[-1] % step or f.data_ptr() % ROI_VECTOR_BYTES
-                or f.stride(0) % step or f.stride(1) % step):
+        if (f.data_ptr() % ROI_VECTOR_BYTES or f.stride(0) % step
+                or f.stride(1) % step):
             return 1
     return step
 
@@ -337,12 +360,14 @@ def _check_launchable_roi(feats, boxes, resolution: int,
         raise ValueError(f"the ROIAlign kernel takes R <= {ROI_MAX_BOXES} "
                          f"boxes and fewer than 2^31 output elements, got "
                          f"R={R}, C={C}")
+    if roi_layout(feats) is None:
+        raise ValueError("the ROIAlign kernel reads level maps with "
+                         "contiguous channels (channels-last) or contiguous "
+                         "columns (NCHW), all four alike")
     for f in feats:
         H, W, _ = f.shape
-        if f.stride(2) != 1:
-            raise ValueError("the ROIAlign kernel reads level maps with "
-                             "contiguous channels (channels-last)")
-        if (H - 1) * f.stride(0) + (W - 1) * f.stride(1) + C > _INT32_LIMIT:
+        if ((H - 1) * f.stride(0) + (W - 1) * f.stride(1)
+                + (C - 1) * f.stride(2) + 1 > _INT32_LIMIT):
             raise ValueError(f"a level map of {tuple(f.shape)} with strides "
                              f"{f.stride()} is beyond the kernel's 32-bit "
                              f"indices")
@@ -369,6 +394,7 @@ def _launch_roi(feats, boxes, strides, resolution, sampling, *,
         arr(ctypes.c_int, [f.shape[1] for f in feats]),
         arr(ctypes.c_longlong, [f.stride(0) for f in feats]),
         arr(ctypes.c_longlong, [f.stride(1) for f in feats]),
+        arr(ctypes.c_longlong, [f.stride(2) for f in feats]),
         arr(ctypes.c_float, [float(s) for s in strides]),
         boxes.data_ptr(), boxes.stride(0), boxes.stride(1), R, C,
         resolution, sampling, roi_vector_width(feats), out.data_ptr(),
@@ -447,9 +473,22 @@ class FasterRCNN(nn.Module):
             self._static[key] = got
         return got
 
+    @property
+    def memory_format(self) -> torch.memory_format:
+        """The layout the convolutions' weights lie in, which their inputs
+        and outputs follow: ``torch.channels_last`` once the module was
+        moved there, else ``torch.contiguous_format``."""
+        w = self.backbone.stem_conv.weight
+        if (w.is_contiguous(memory_format=torch.channels_last)
+                and not w.is_contiguous()):
+            return torch.channels_last
+        return torch.contiguous_format
+
     def features(self, image: torch.Tensor) -> List[torch.Tensor]:
-        """(canvas, canvas, 3) image → P2..P6, NCHW in channels-last."""
-        x = image.permute(2, 0, 1)[None]  # a channels-last NCHW view
+        """(canvas, canvas, 3) image → P2..P6, NCHW in
+        :attr:`memory_format` (P6 a strided view of P5)."""
+        x = image.permute(2, 0, 1)[None].contiguous(
+            memory_format=self.memory_format)
         with obs.span("detect.backbone"):
             feats = self.backbone(x)
         with obs.span("detect.fpn"):
