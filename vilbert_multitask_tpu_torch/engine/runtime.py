@@ -135,6 +135,7 @@ from vilbert_multitask_tpu_torch.models.vilbert import (
     ViLBertOutput,
     fused_head_output,
 )
+from vilbert_multitask_tpu_torch.ops.int8_linear import planned_kernels
 from vilbert_multitask_tpu_torch.parallel import comm
 from vilbert_multitask_tpu_torch.parallel import sharding as shd
 from vilbert_multitask_tpu_torch.parallel.mesh import axis as mesh_axis
@@ -440,6 +441,9 @@ class InferenceEngine:
         self._pack_keys: set = set()
         # One captured graph per row bucket (warmup), one shared pool.
         self._graphs: Dict[int, graphs.BucketGraph] = {}
+        # int8 storage: per bucket, the int8 products its captured graph
+        # launches (on the CPU, its warm forward makes), by planned kernel.
+        self._int8_products: Dict[int, Dict[str, int]] = {}
         self._graph_pool = None
         # Built on the meta device (no allocation, no init kernels), then
         # given storage once: Linear/Embedding weights in the compute dtype
@@ -529,7 +533,14 @@ class InferenceEngine:
                 raise ValueError("an int8 mesh engine takes a sharded "
                                  "state dict quantized before sharding "
                                  "(restore_params(..., dtype='int8'))")
-            return quant.quantize_tree(sd)
+            floating = [v for v in sd.values()
+                        if not quant.is_quantized_leaf(v)
+                        and v.is_floating_point() and v.dim() >= 2]
+            with (obs.span("engine.quantize", leaves=len(floating),
+                           bytes=sum(v.numel() * v.element_size()
+                                     for v in floating))
+                  if floating else contextlib.nullcontext()):
+                return quant.quantize_tree(sd)
         if quant.tree_is_quantized(sd):
             raise ValueError("a quantized (int8) state dict needs "
                              "EngineConfig.param_dtype='int8'")
@@ -1033,6 +1044,14 @@ class InferenceEngine:
             return {"entries": len(self._input_cache),
                     "hits": self._input_cache_hits,
                     "misses": self._input_cache_misses}
+
+    @property
+    def int8_product_stats(self) -> Dict[int, Dict[str, int]]:
+        """Per warmed bucket, the int8 products a replay of its graph
+        launches (on the CPU, its forward makes) by planned kernel
+        (``ops/int8_linear.py:kernel_label``: ``stream_s<splits>``,
+        ``wgmma``, ``f32``); empty for a floating engine."""
+        return {b: dict(k) for b, k in self._int8_products.items()}
 
     def live_stats(self) -> Dict[str, float]:
         """Point-in-time engine internals for the obs sampler: slab/cache
@@ -1554,7 +1573,8 @@ class InferenceEngine:
         captured. ``parallel`` is accepted for the serve tier's seam and
         unused on this backend: capture is not thread-safe the way XLA
         compiles are, so buckets capture one at a time. A failed capture
-        raises.
+        raises. An int8 engine tallies each bucket's products by planned
+        kernel as it captures (:attr:`int8_product_stats`).
         """
         del parallel  # one bucket at a time (see above)
         if self.mesh is not None:
@@ -1572,15 +1592,23 @@ class InferenceEngine:
                 pack = torch.zeros((b, 3 * nt + 2), dtype=torch.long,
                                    device=self.device)
                 pack[:, 2 * nt:3 * nt] = 1  # text mask; slot 0 = pad row
-                self._rows_step(pack)
+                tally = (planned_kernels if self.param_quantized
+                         else contextlib.nullcontext)
+                with tally() as eager:
+                    self._rows_step(pack)
                 if self._stream is None:
+                    if self.param_quantized:
+                        self._int8_products[b] = eager.counts
                     continue
                 self._stream.synchronize()
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
-                self._graphs[b] = graphs.capture(
-                    b, self._rows_step, pack, stream=self._stream,
-                    pool=self._graph_pool)
+                with tally() as captured:
+                    self._graphs[b] = graphs.capture(
+                        b, self._rows_step, pack, stream=self._stream,
+                        pool=self._graph_pool)
+                if self.param_quantized:
+                    self._int8_products[b] = captured.counts
             seconds = time.perf_counter() - t0
             self.book_boot_time("compile_s", seconds)
             self.book_boot_time("capture_s", seconds)

@@ -47,6 +47,12 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch.autograd import profiler as _profiler
 
+# The first range entered in a process imports a module after it has
+# stamped its start (about a millisecond, read into that span's start):
+# entered once here, where no profiler records it.
+with _profiler.record_function("obs.trace"):
+    pass
+
 
 # The ids' own generator, seeded from the OS at import and again in a
 # forked child: a ``random.seed(n)`` elsewhere in the process leaves it be,
@@ -145,15 +151,19 @@ class _ActiveSpan:
             self.parent_id = None
         self.span_id = new_trace_id()
         state.stack.append(self)
-        self._t0 = time.perf_counter()
         # A range only where the profiler records this thread's host
         # ranges (the threads it was started on): the per-thread C flag.
-        # The range stamps its start early in its enter, whose first call
-        # takes a millisecond, so the span's start is read before it.
+        # The span's start is read once the range is open: the first range
+        # a thread opens in a profiler's session sets up that thread's
+        # event queue before it stamps its start (0.1-3 ms, longer on a
+        # loaded host), while what follows the stamp is short and the
+        # same on every call (the import inside the first call ever is
+        # paid below, at import).
         if (_profiler._is_profiler_enabled
                 and torch._C._autograd._profiler_enabled()):
             self._range = _profiler.record_function(self.name)
             self._range.__enter__()
+        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:

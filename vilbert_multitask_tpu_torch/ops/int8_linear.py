@@ -138,6 +138,38 @@ def plan_launch(M: int, N: int, K: int, batch: int = 1) -> Plan:
                 (n_tiles * splits, x_tiles, batch), STREAM_SMEM)
 
 
+def kernel_label(dtype: torch.dtype, M: int, N: int, K: int,
+                 batch: int = 1) -> str:
+    """The kernel a launch of x (batch, M, K) in ``dtype`` times q (batch,
+    N, K) takes, from the shape alone: ``"wgmma"``, ``"stream_s<splits>"``
+    (bf16, by :func:`plan_launch`) or ``"f32"``."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    plan = plan_launch(M, N, K, batch)
+    return ("wgmma" if plan.regime == "wgmma"
+            else f"stream_s{plan.splits}")
+
+
+class planned_kernels:
+    """Tally, by :func:`kernel_label`, the products :func:`int8_linear`
+    makes on this thread while the context is open (on the card and on the
+    CPU alike): ``with planned_kernels() as tally: ...`` leaves a
+    ``{label: calls}`` dict in ``tally.counts``."""
+
+    def __enter__(self) -> "planned_kernels":
+        self.counts: dict = {}
+        self._outer = getattr(_TALLY, "counts", None)
+        _TALLY.counts = self.counts
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _TALLY.counts = self._outer
+        return False
+
+
+_TALLY = threading.local()
+
+
 def padded_width(k: int) -> int:
     """The row stride, in int8 elements, of a weight with K = ``k``: ``k``
     rounded up to :data:`W_ROW_ALIGN`."""
@@ -339,6 +371,11 @@ def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if q.dim() == 2 and x.dim() != 2:
         x = x.reshape(-1, x.shape[-1])
     _check_shapes(x, q, scale, bias)
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        label = kernel_label(x.dtype, x.shape[-2], q.shape[-2], q.shape[-1],
+                             q.shape[0] if q.dim() == 3 else 1)
+        tally[label] = tally.get(label, 0) + 1
     tensors = (x, q, scale) + ((bias,) if bias is not None else ())
     devices = {t.device for t in tensors}
     if len(devices) != 1:

@@ -281,7 +281,10 @@ class ServeApp:
         self.api = ApiServer(
             self.queue, self.store, self.hub, s,
             metrics=self.worker.metrics, boot_info=self.boot_info,
-            stats_fn=lambda: {"input_cache": self.engine.input_cache_stats},
+            stats_fn=lambda: {
+                "input_cache": self.engine.input_cache_stats,
+                "int8_products": getattr(self.engine, "int8_product_stats",
+                                         {})},
             slos=self.slos, timeseries=self.timeseries,
             pool=self.engine, swap_fn=self.rolling_swap, fleet=self.fleet,
             attrib=self.attrib, tracestore=self.tracestore,

@@ -74,7 +74,8 @@ class ApiServer:
         # (engine init / warmup timings, kernel path) — surfaced in /healthz.
         self.boot_info = boot_info if boot_info is not None else {}
         # Optional live-stats callable merged into /metrics (ServeApp wires
-        # the engine's device input-cache counters through this).
+        # the engine's device input-cache counters and int8 product counts
+        # through this).
         self.stats_fn = stats_fn
         # Replica pool (ServeApp wires its ReplicaPool through): /healthz
         # reports per-replica states and readiness requires >=1 ready
@@ -376,6 +377,16 @@ class ApiServer:
                     labelnames=("key",))
                 for key, value in cache.items():
                     cg.set(value, key=str(key))
+            products = stats.get("int8_products") or {}
+            if products:
+                pg = obs.REGISTRY.gauge(
+                    "vmt_int8_products",
+                    "int8 GEMM launches a replay of each captured bucket "
+                    "makes, by planned kernel.",
+                    labelnames=("bucket", "kernel"))
+                for bucket, kernels in products.items():
+                    for kernel, n in kernels.items():
+                        pg.set(n, bucket=str(bucket), kernel=kernel)
 
     # ------------------------------------------------- cost attribution
     def debug_costs(self, window_s: Optional[float],

@@ -206,6 +206,10 @@ class ReplicaPool:
     def input_cache_stats(self) -> Dict[str, int]:
         return self._host.input_cache_stats
 
+    @property
+    def int8_product_stats(self) -> Dict[int, Dict[str, int]]:
+        return self._host.int8_product_stats
+
     # ------------------------------------------------------------------
     # Boot.
 
