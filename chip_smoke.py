@@ -326,8 +326,8 @@ LAUNCHES_PER_FORWARD = 18  # 12 bridge directions + 6 visual self-attentions
 ROI_ATOL = ROI_RTOL = 1e-5
 NMS_IOU_OPS = 13  # f32 operations of one IoU test (csrc/nms.cu)
 # SASS instructions counted per kernel: mma.sync, cp.async, ldmatrix, wgmma,
-# TMA loads.
-SASS_COUNTED = ("HMMA", "LDGSTS", "LDSM", "HGMMA", "UTMALDG")
+# TMA loads, f32 FMAs.
+SASS_COUNTED = ("HMMA", "LDGSTS", "LDSM", "HGMMA", "UTMALDG", "FFMA")
 # Cold-L2 timing: each shape's weights rotate through copies that add up to
 # more than the H100's 50 MB L2 (at most INT8_COLD_MAX_COPIES copies).
 INT8_COLD_BYTES = 64 << 20
@@ -335,6 +335,14 @@ INT8_COLD_MAX_COPIES = 256
 # Per extracted image: one NMS call for the 5 RPN levels, one for the
 # per-class selection, one ROIAlign call.
 NMS_PER_IMAGE, ROI_PER_IMAGE = 2, 1
+# The X-152's bottleneck middles on the 1344 canvas, one grouped_conv call
+# each: (channels, H, W of conv1's map, stride, calls an image).
+GROUPED_CONV_SHAPES = ((256, 336, 336, 1, 3), (512, 336, 336, 2, 1),
+                       (512, 168, 168, 1, 7), (1024, 168, 168, 2, 1),
+                       (1024, 84, 84, 1, 35), (2048, 84, 84, 2, 1),
+                       (2048, 42, 42, 1, 2))
+GROUPED_CONV_PER_IMAGE = sum(s[-1] for s in GROUPED_CONV_SHAPES)  # 50
+F32_PEAK, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM, FMA units and HBM3
 # cuDNN's layout conversions around a convolution whose kernel wants the
 # other layout; none runs in the f32 extractor, whose tensors are NCHW.
 LAYOUT_CONVERSION = re.compile(r"nchwToNhwc|nhwcToNchw")
@@ -468,6 +476,7 @@ def kernel_build_notes(_build, name: str) -> list:
     for mangled, rec in sorted(notes.items()):
         m = re.search(r"(flash_attn_(?:bf16|f32)_kernel|nms_[a-z_]+_kernel|"
                       r"roi_align_(?:nchw_)?kernel|"
+                      r"grouped_conv_bn_relu_kernel|"
                       r"int8_linear_(?:bf16_stream|bf16_wgmma|f32)_kernel)"
                       r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
         args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
@@ -499,11 +508,18 @@ def check_build_notes(notes: list) -> None:
     """No spills anywhere; the bf16 kernels' SASS (the flash kernel's, the
     dense core's, the int8 GEMM's) holds their tensor-core and copy
     instructions: mma.sync (HMMA) and cp.async (LDGSTS), and for the int8
-    wgmma kernel wgmma (HGMMA) and TMA (UTMALDG)."""
+    wgmma kernel wgmma (HGMMA) and TMA (UTMALDG); the f32 grouped
+    convolution's holds FFMA and LDGSTS and no tensor-core instruction."""
     for rec in notes:
         if rec.get("spill_store_bytes", 0) or rec.get("spill_load_bytes", 0):
             raise AssertionError(f"{rec['kernel']} spills: {rec}")
         sass = rec.get("sass", {})
+        if rec["kernel"].startswith("grouped_conv_bn_relu"):
+            if (not sass.get("FFMA") or not sass.get("LDGSTS")
+                    or sass.get("HMMA") or sass.get("HGMMA")):
+                raise AssertionError(f"{rec['kernel']} is not an f32 FMA "
+                                     f"kernel with cp.async: {sass}")
+            continue
         if not rec["kernel"].startswith(("flash_attn_bf16",
                                          "int8_linear_bf16",
                                          "dense_attention")):
@@ -1883,7 +1899,8 @@ def profile_split(torch, ex, rgb) -> dict:
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     handwritten = {k: v[0] for k, v in by_name.items() if re.search(
-        r"nms_[a-z_]+_kernel|roi_align_(?:nchw_)?kernel", k)}
+        r"nms_[a-z_]+_kernel|roi_align_(?:nchw_)?kernel|"
+        r"grouped_conv_bn_relu_kernel", k)}
     conversions = {k: v[1] for k, v in by_name.items()
                    if LAYOUT_CONVERSION.search(k)}
     return {"split_ms": dict(split), "device_busy_ms": busy,
@@ -2015,6 +2032,213 @@ def timed_extractions(torch, ex, images: list) -> dict:
             "wall_p50": statistics.median(wall_ms)}
 
 
+def grouped_conv_inputs(torch, channels: int, h: int, w: int, seed: int,
+                        dev):
+    """conv1's raw output and a bottleneck middle's weights at a served
+    shape: lecun-normal conv2 (32 groups), FrozenBN scales about 1 and
+    biases of either sign (relu(bias1) is not 0 where the halo pads)."""
+    g = torch.Generator().manual_seed(seed)
+    width = channels // 32
+    x = torch.randn((1, channels, h, w), generator=g)
+    weight = torch.randn((channels, width, 3, 3), generator=g) / (
+        9 * width) ** 0.5
+    s1, s2 = (0.5 + torch.rand(channels, generator=g) for _ in range(2))
+    b1, b2 = (torch.randn(channels, generator=g) * 0.5 for _ in range(2))
+    return tuple(t.to(dev) for t in (x, weight, s1, b1, s2, b2))
+
+
+def grouped_conv_bound_ms(c: int, h: int, w: int, stride: int) -> tuple:
+    """Least time of one middle, and what bounds it: 2 * C * Ho * Wo *
+    (C / 32) * 9 FLOP at the f32 peak, against h read once, the output
+    written once, the weight and the four affine vectors, at the HBM
+    rate."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    flops = 2 * c * ho * wo * (c // 32) * 9
+    n_bytes = 4 * (c * h * w + c * ho * wo + c * (c // 32) * 9 + 4 * c)
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def device_kernels(torch, prof) -> list:
+    """Names of the kernels a profile saw run on the card, in order
+    (copies and memsets left out), whoever launched them: a torch op or a
+    library of this package through ctypes."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def captured_kernels(torch, fn) -> int:
+    """Kernels one call of ``fn`` enqueues, counted as the kernel nodes of
+    a CUDA graph that captures it (the driver's count). A profiler session
+    around a lone ctypes launch reported its kernel late, in the next
+    session, or not at all in some sessions, so a launch count per call is
+    not read from one."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc: int) -> None:
+        if rc:
+            raise RuntimeError(f"CUDA driver call failed: CUresult {rc}")
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
+
+
+def check_grouped_conv(torch, report: dict) -> dict:
+    """``csrc/grouped_conv.cu`` at each served shape: against the
+    composition in float64, within twice the cuDNN f32 composition's own
+    error; two launches bit-equal; device ms (kernel, the composition on
+    cuDNN with TF32 off, the bound) and launches a call. Returns the
+    per-image sums, each shape weighted by its calls an image."""
+    from vilbert_multitask_tpu_torch.ops import grouped_conv as gcm
+
+    dev = torch.device("cuda")
+    rows, image = [], {"kernel_ms": 0.0, "composition_ms": 0.0,
+                       "bound_ms": 0.0, "kernel_launches": 0,
+                       "composition_launches": 0}
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=False,
+            allow_tf32=False):
+        for c, h, w, stride, per_image in GROUPED_CONV_SHAPES:
+            args = grouped_conv_inputs(torch, c, h, w, c + h + stride, dev)
+            kw = dict(stride=stride, padding=1, groups=32)
+            plan = gcm.check_launchable(*args, **kw)
+            smem = gcm.shared_memory_bytes(plan.width, plan.stride)
+            got = gcm.launch(*args, **kw)
+            again = gcm.launch(*args, **kw)
+            cudnn = gcm.grouped_conv_bn_relu_plain(*args, **kw)
+            want = gcm.grouped_conv_bn_relu_plain(
+                *(t.double() for t in args), **kw)
+            err = (got.double() - want).abs().max().item()
+            cudnn_err = (cudnn.double() - want).abs().max().item()
+            counts = {route: captured_kernels(
+                torch, lambda fn=fn: fn(*args, **kw))
+                for route, fn in (("kernel", gcm.launch),
+                                  ("composition",
+                                   gcm.grouped_conv_bn_relu_plain))}
+            row = dict(shape=[c, h, w], stride=stride, width=plan.width,
+                       calls_per_image=per_image, smem_bytes=smem,
+                       max_abs_err=err,
+                       cudnn_max_abs_err=cudnn_err,
+                       equal_to_cudnn=torch.equal(got, cudnn),
+                       bit_equal_twice=torch.equal(got, again),
+                       kernel_ms=device_ms(lambda: gcm.launch(*args, **kw)),
+                       composition_ms=device_ms(
+                           lambda: gcm.grouped_conv_bn_relu_plain(*args,
+                                                                  **kw)),
+                       launches=counts)
+            row["bound_ms"], row["bound_by"] = grouped_conv_bound_ms(
+                c, h, w, stride)
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["kernel_ms"]
+            rows.append(row)
+            for key in ("kernel_ms", "composition_ms", "bound_ms"):
+                image[key] += per_image * row[key]
+            image["kernel_launches"] += per_image * counts["kernel"]
+            image["composition_launches"] += per_image * counts[
+                "composition"]
+            log(f"grouped_conv {c}x{h}x{w}/{stride} (width {plan.width}, "
+                f"{smem} B smem): max abs err "
+                f"{err:.3e} (cuDNN f32 {cudnn_err:.3e}, bit-equal to it: "
+                f"{row['equal_to_cudnn']}); kernel_ms="
+                f"{row['kernel_ms']:.4f} composition_ms="
+                f"{row['composition_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                f"({row['bound_by']}, {row['roofline_pct']:.1f} %); "
+                f"launches {counts}")
+            if (not err <= 2 * cudnn_err or not row["bit_equal_twice"]
+                    or counts["kernel"] != 1):
+                raise AssertionError(f"grouped_conv {row}")
+            del args, got, again, cudnn, want
+    image["roofline_pct"] = 100 * image["bound_ms"] / image["kernel_ms"]
+    log("grouped_conv per image (50 middles): " + json.dumps(
+        {k: round(v, 4) for k, v in image.items()}))
+    report["grouped_conv_shapes"] = rows
+    report["grouped_conv_image"] = image
+    torch.cuda.empty_cache()
+    return image
+
+
+def middle_probe(torch, ex, rgb, runs: int = 3) -> dict:
+    """The 50 bottleneck middles of one extraction, by route (the parent's
+    composition, then the kernel): their device ms by CUDA events on the
+    extractor's stream around each middle, summed (one stream: the sum is
+    their union), median of ``runs``; the extraction's device ms by events;
+    and the kernels one extraction runs on the card, all of them and the
+    grouped_conv kernel's (the middles' launches an image are the
+    composition's total less the kernel route's, plus 50)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vilbert_multitask_tpu_torch.detect import model as dm
+    from vilbert_multitask_tpu_torch.ops import grouped_conv as gcm
+
+    saved = dm.grouped_conv_bn_relu
+    out = {}
+    try:
+        for route, fn in (("composition", gcm.grouped_conv_bn_relu_plain),
+                          ("kernel", gcm.launch)):
+            marks = []
+
+            def timed(*a, _fn=fn, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record(ex._stream)
+                y = _fn(*a, **k)
+                stop.record(ex._stream)
+                marks.append((start, stop))
+                return y
+
+            dm.grouped_conv_bn_relu = timed
+            ex.extract_array(rgb)  # warm
+            sums, whole = [], []
+            for _ in range(runs):
+                marks.clear()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record(ex._stream)
+                ex.extract_array(rgb)
+                stop.record(ex._stream)
+                torch.cuda.synchronize()
+                sums.append(sum(a.elapsed_time(b) for a, b in marks))
+                whole.append(start.elapsed_time(stop))
+            calls = len(marks)
+            dm.grouped_conv_bn_relu = fn
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ex.extract_array(rgb)
+                torch.cuda.synchronize()
+            names = device_kernels(torch, prof)
+            out[route] = {"middles_ms": statistics.median(sums),
+                          "runs_ms": sums, "calls": calls,
+                          "extraction_ms": statistics.median(whole),
+                          "kernels": len(names),
+                          "grouped_conv_kernels": sum(
+                              "grouped_conv_bn_relu_kernel" in n
+                              for n in names)}
+    finally:
+        dm.grouped_conv_bn_relu = saved
+    out["middle_launches"] = {
+        "kernel": out["kernel"]["grouped_conv_kernels"],
+        "composition": (out["composition"]["kernels"]
+                        - out["kernel"]["kernels"]
+                        + out["kernel"]["grouped_conv_kernels"])}
+    return out
+
+
 def check_detect(torch, report: dict) -> dict:
     """The detector at full width (``DetectorConfig()``, canvas 1344, 300
     proposals) on seeded weights and seeded images of four sizes."""
@@ -2027,6 +2251,7 @@ def check_detect(torch, report: dict) -> dict:
     )
     from vilbert_multitask_tpu_torch.ops import nms as nm
 
+    grouped = check_grouped_conv(torch, report)
     cfg = DetectorConfig()
     t0 = time.perf_counter()
     ex = LiveFeatureExtractor(cfg, device="cuda")
@@ -2041,18 +2266,25 @@ def check_detect(torch, report: dict) -> dict:
     images = [seeded_rgb(100 + i, h, w)
               for i, (_, h, w) in enumerate(DETECT_IMAGES)]
     per_image = []
-    total = {"nms": 0, "roi_align": 0}
+    total = {"nms": 0, "roi_align": 0, "grouped_conv": 0}
     for (name, h, w), rgb in zip(DETECT_IMAGES, images):
         # The main path: extract_array, counters zeroed just before.
         nm.nms_mask.launches = dm.roi_align.launches = 0
+        calls0 = ex.model.grouped_conv_stats()
         region = ex.extract_array(rgb)
         torch.cuda.synchronize()
         k1, k2 = nm.nms_mask.launches, dm.roi_align.launches
+        calls1 = ex.model.grouped_conv_stats()
+        k3 = calls1["kernel"] - calls0["kernel"]
         total["nms"] += k1
         total["roi_align"] += k2
-        if (k1, k2) != (NMS_PER_IMAGE, ROI_PER_IMAGE):
-            raise AssertionError(f"detect {name}: {k1} nms and {k2} "
-                                 f"roi_align launches, want 2 and 1")
+        total["grouped_conv"] += k3
+        if (k1, k2, k3) != (NMS_PER_IMAGE, ROI_PER_IMAGE,
+                            GROUPED_CONV_PER_IMAGE) or (
+                calls1["composition"] != calls0["composition"]):
+            raise AssertionError(f"detect {name}: {k1} nms, {k2} roi_align "
+                                 f"and {k3} grouped_conv launches ("
+                                 f"{calls0} -> {calls1}), want 2, 1 and 50")
         b = region.boxes
         if (region.features.shape != (region.num_boxes,
                                       cfg.representation_size)
@@ -2097,13 +2329,15 @@ def check_detect(torch, report: dict) -> dict:
                 cls[:, 1:].amax(dim=1)).numel()),
             num_valid=k["num_valid"])
         row = dict(image=name, h=h, w=w, num_boxes=region.num_boxes,
-                   launches={"nms": k1, "roi_align": k2}, same=same,
+                   launches={"nms": k1, "roi_align": k2,
+                             "grouped_conv": k3}, same=same,
                    fc6_max_abs_err=fc6_err.max().item(),
                    fc6_tol_used=fc6_used, spread=spread,
                    level_map_sizes=[list(f.shape[2:]) for f in k["feats"]])
         per_image.append(row)
         log(f"detect {name}: {region.num_boxes} regions, launches nms {k1} "
-            f"roi_align {k2}; kernels vs plain: {same}, fc6 max abs err "
+            f"roi_align {k2} grouped_conv {k3}; kernels vs plain: {same}, "
+            f"fc6 max abs err "
             f"{row['fc6_max_abs_err']:.3e} ({fc6_used:.3f} of tol); scores "
             f"{spread}")
         if not all(same.values()) or not fc6_used <= 1.0:
@@ -2137,6 +2371,14 @@ def check_detect(torch, report: dict) -> dict:
     log("detect: forward of the 1333x800 image, host time to enqueue "
         "against device time on the extractor's stream (median of 5): "
         + json.dumps(launch_bound))
+    middles = middle_probe(torch, ex, images[2])
+    log("detect: the 50 bottleneck middles of the 1333x800 image by route "
+        "(device ms by events, summed; kernels they launch; the "
+        "extraction's device ms): " + json.dumps(middles))
+    if (middles["middle_launches"]["kernel"] != GROUPED_CONV_PER_IMAGE
+            or middles["kernel"]["calls"] != GROUPED_CONV_PER_IMAGE):
+        raise AssertionError(f"detect: the kernel route's middles "
+                             f"{middles['kernel']}")
     layouts, layout_peaks = layout_probe(torch, ex, images[2])
     log("detect: backbone + FPN device ms by memory format and cuDNN "
         "precision (1333x800 image, median of 6, in turns; the extractor "
@@ -2168,7 +2410,8 @@ def check_detect(torch, report: dict) -> dict:
         "launches": total, "timing": timing, "profile": split,
         "tf32": {"device_p50_ms": turns, "kept_box_overlap": overlap},
         "layout_probe_ms": layouts, "layout_probe_peak_mib": layout_peaks,
-        "host_probe_ms": launch_bound,
+        "host_probe_ms": launch_bound, "middles": middles,
+        "grouped_conv_image": grouped,
         "precision": "f32 (cuDNN allow_tf32=False)"}
     del ex
     torch.cuda.empty_cache()
@@ -6464,6 +6707,26 @@ def main() -> int:
         "per": "one image: 300 proposals over P2..P5, 7x7 bins, 256 "
                "channels",
         "notes": {"instantiations": report["build_notes"]["roi_align"]},
+    }, {
+        "name": "grouped_conv",
+        "route": "cuda",
+        "source": "vilbert_multitask_tpu_torch/csrc/grouped_conv.cu",
+        "replaces": "vilbert_multitask_tpu/detect/model.py:63-71 (XLA's "
+                    "grouped convolution with its BN/ReLU fusion, no Pallas "
+                    "kernel)",
+        "launches": detect_launches["grouped_conv"],
+        "launches_by_path": {"detect": detect_launches["grouped_conv"],
+                             "per_image": GROUPED_CONV_PER_IMAGE},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in report["grouped_conv_shapes"]),
+        "ms": report["grouped_conv_image"]["kernel_ms"],
+        "plain_ms": report["grouped_conv_image"]["composition_ms"],
+        "bound_ms": report["grouped_conv_image"]["bound_ms"],
+        "bound_by": "operations (bytes at stage 2)",
+        "library_ms": None,  # the plain version is cuDNN's composition
+        "per": "one image: the 50 bottleneck middles of the X-152 on the "
+               "1344 canvas",
+        "notes": {"instantiations": report["build_notes"]["grouped_conv"]},
     }]}
     def per_forward(rows: int, key: str) -> float:
         """A column of the int8_linear rows summed over the launches of one

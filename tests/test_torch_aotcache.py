@@ -44,7 +44,7 @@ from vilbert_multitask_tpu_torch.engine.aotcache import default_cache_dir
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALL = ("flash_attn", "layer_norm", "softmax", "dense_attention",
-       "int8_linear", "nms", "roi_align")
+       "int8_linear", "nms", "roi_align", "grouped_conv")
 # Every variant launches the LayerNorm and the text attentions' dense core
 # (one kernel in bf16, the softmax's in f32 and for collected maps).
 ALWAYS = ["layer_norm", "softmax", "dense_attention"]
@@ -116,7 +116,8 @@ def _counts(names):
 @pytest.mark.parametrize("engine,live,want", [
     ({}, False, ["flash_attn"] + ALWAYS),
     ({"param_dtype": "int8"}, False, ["flash_attn"] + ALWAYS + ["int8_linear"]),
-    ({}, True, ["flash_attn"] + ALWAYS + ["nms", "roi_align"]),
+    ({}, True, ["flash_attn"] + ALWAYS + ["nms", "roi_align",
+                                          "grouped_conv"]),
     ({"param_dtype": "int8"}, True, list(ALL)),
     ({"use_pallas_coattention": False, "use_pallas_self_attention": False},
      False, ALWAYS),

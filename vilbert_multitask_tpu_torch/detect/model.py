@@ -16,11 +16,13 @@ worker.py:78-89,192-193. The same graph, on the same fixed canvas:
   no layout conversion runs around a convolution. ROIAlign reads each
   level map as an (H, W, C) view without a copy, in either layout;
 - frozen BatchNorm is the affine ``x * scale + bias``; grouped convs are
-  ``groups=32``; Flax's padding is carried exactly: ``padding=1``/``3``
-  symmetric, the 1×1 convs unpadded (Flax's ``SAME`` pads nothing for a
-  1×1 kernel), the stem max-pool padded with −inf, P6 the stride-2
-  subsample of P5, and the FPN's nearest resize an exact 2× step
-  (asserted);
+  ``groups=32``, each bottleneck's ``relu(bn2(conv2(relu(bn1(.)))))`` one
+  call of :func:`..ops.grouped_conv.grouped_conv_bn_relu` (on the card in
+  f32 NCHW, one launch of ``csrc/grouped_conv.cu``); Flax's padding is
+  carried exactly: ``padding=1``/``3`` symmetric, the 1×1 convs unpadded
+  (Flax's ``SAME`` pads nothing for a 1×1 kernel), the stem max-pool
+  padded with −inf, P6 the stride-2 subsample of P5, and the FPN's nearest
+  resize an exact 2× step (asserted);
 - every ``lax.top_k`` is a stable descending sort (:func:`..ops.nms.top_k`);
 - NMS is :func:`..ops.nms.nms_mask`, one batched call for the five RPN
   levels; ROIAlign is :func:`roi_align`, one call for the 300 proposals
@@ -49,6 +51,11 @@ from torch import nn
 
 from vilbert_multitask_tpu_torch import _build, obs
 from vilbert_multitask_tpu_torch.config import DetectorConfig
+from vilbert_multitask_tpu_torch.ops.grouped_conv import (
+    CALLS as GROUPED_CONV_CALLS,
+    grouped_conv_bn_relu,
+    lies_channels_last,
+)
 from vilbert_multitask_tpu_torch.ops.nms import nms_mask, top_k
 
 FPN_STRIDES = (4, 8, 16, 32, 64)  # P2..P6
@@ -94,8 +101,14 @@ class BottleneckX(nn.Module):
             self.downsample_bn = FrozenBN(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = F.relu(self.bn2(self.conv2(h)))
+        # relu(bn2(conv2(relu(bn1(.))))): one kernel on the card in NCHW,
+        # the composition on the CPU and in channels-last
+        # (ops/grouped_conv.py)
+        c = self.conv2
+        h = grouped_conv_bn_relu(
+            self.conv1(x), c.weight, self.bn1.scale, self.bn1.bias,
+            self.bn2.scale, self.bn2.bias, stride=c.stride, padding=c.padding,
+            groups=c.groups)
         h = self.bn3(self.conv3(h))
         residual = (self.downsample_bn(self.downsample(x)) if self.project
                     else x)
@@ -473,14 +486,23 @@ class FasterRCNN(nn.Module):
             self._static[key] = got
         return got
 
+    @staticmethod
+    def grouped_conv_stats() -> Dict[str, int]:
+        """Bottleneck middles run by every detector of this process, by
+        route (``kernel``: ``csrc/grouped_conv.cu``; ``composition``: the
+        torch ops), as the process-wide counter
+        ``vmt_detect_grouped_conv_calls`` counts them: take the difference
+        around a call for one model's. On the card's f32 path 50 kernel
+        calls an image at the X-152's depth, 0 composed."""
+        return {route: int(GROUPED_CONV_CALLS.value(route=route))
+                for route in ("kernel", "composition")}
+
     @property
     def memory_format(self) -> torch.memory_format:
         """The layout the convolutions' weights lie in, which their inputs
         and outputs follow: ``torch.channels_last`` once the module was
         moved there, else ``torch.contiguous_format``."""
-        w = self.backbone.stem_conv.weight
-        if (w.is_contiguous(memory_format=torch.channels_last)
-                and not w.is_contiguous()):
+        if lies_channels_last(self.backbone.stem_conv.weight):
             return torch.channels_last
         return torch.contiguous_format
 

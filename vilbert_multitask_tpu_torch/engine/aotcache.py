@@ -48,8 +48,8 @@ def compile_fingerprint(cfg, *, live_extract: bool = False
     attentions' dense core as one kernel in bf16 or through the softmax's
     in f32 and for collected bridge maps;
     ``flash_attn`` whenever the hand-written attention is selected,
-    ``int8_linear`` with int8 storage, ``nms`` and ``roi_align`` with live
-    extraction), nvcc's flags, the toolkit's release line and each
+    ``int8_linear`` with int8 storage, ``nms``, ``roi_align`` and
+    ``grouped_conv`` with live extraction), nvcc's flags, the toolkit's release line and each
     library's file name under a cache root."""
     ecfg = cfg.engine
     libs = []
@@ -59,7 +59,7 @@ def compile_fingerprint(cfg, *, live_extract: bool = False
     if ecfg.param_dtype == "int8":
         libs.append("int8_linear")
     if live_extract:
-        libs += ["nms", "roi_align"]
+        libs += ["nms", "roi_align", "grouped_conv"]
     return {
         "libraries": libs,
         "flags": list(_build.NVCC_FLAGS),

@@ -16,7 +16,8 @@ mounts the directory boots with no nvcc run:
 One process covers one variant: every variant builds ``flash_attn``,
 ``layer_norm``, ``softmax`` and ``dense_attention``; ``--dtype int8`` adds
 ``int8_linear``,
-``--live-extract`` the detector's ``nms`` and ``roi_align``. It prints one
+``--live-extract`` the detector's ``nms``, ``roi_align`` and
+``grouped_conv``. It prints one
 JSON report (each library: ``hit`` or ``built``, nvcc's seconds, the
 verification's error and the fingerprint) and exits non-zero without nvcc,
 without a card, or when a build or a check fails: it never skips.
@@ -96,6 +97,30 @@ def _check_roi_align(torch, dev, gen) -> float:
                 roi_align_plain(feats, boxes, strides, 7, 2))
 
 
+def _check_grouped_conv(torch, dev, gen) -> float:
+    """The bottleneck middle at 64 channels in 4 groups, stride 1 and 2,
+    against its composition on cuDNN in full f32."""
+    from vilbert_multitask_tpu_torch.ops.grouped_conv import (
+        grouped_conv_bn_relu_plain,
+        launch,
+    )
+
+    c, err = 64, 0.0
+    args = [torch.randn(1, c, 30, 33, generator=gen),
+            torch.randn(c, 16, 3, 3, generator=gen) / 12,
+            1 + 0.1 * torch.randn(c, generator=gen),
+            0.5 * torch.randn(c, generator=gen),
+            1 + 0.1 * torch.randn(c, generator=gen),
+            0.5 * torch.randn(c, generator=gen)]
+    args = [a.to(dev) for a in args]
+    for stride in (1, 2):
+        kw = dict(stride=stride, padding=1, groups=4)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            ref = grouped_conv_bn_relu_plain(*args, **kw)
+        err = max(err, _err(launch(*args, **kw), ref))
+    return err
+
+
 def _check_layer_norm(torch, dev, gen) -> float:
     from vilbert_multitask_tpu_torch.ops.layer_norm import (
         add_layer_norm,
@@ -146,7 +171,8 @@ CHECKS = {"flash_attn": _check_flash_attn,
           "layer_norm": _check_layer_norm, "softmax": _check_softmax,
           "dense_attention": _check_dense_attention,
           "int8_linear": _check_int8_linear,
-          "nms": _check_nms, "roi_align": _check_roi_align}
+          "nms": _check_nms, "roi_align": _check_roi_align,
+          "grouped_conv": _check_grouped_conv}
 
 
 def main(argv=None) -> int:
@@ -166,7 +192,7 @@ def main(argv=None) -> int:
                         "config default (int8 adds int8_linear)")
     p.add_argument("--live-extract", action="store_true",
                    help="the live-extraction variant (adds the detector's "
-                        "nms and roi_align)")
+                        "nms, roi_align and grouped_conv)")
     args = p.parse_args(argv)
 
     import torch
