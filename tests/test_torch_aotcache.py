@@ -13,8 +13,10 @@ counts its runs). Checked:
   library's name;
 - the hit and miss counters and the compile-time histogram move by the
   right amounts;
-- ``compile_fingerprint`` names each variant's libraries, and a JAX
-  config's ``aot_cache_dir`` survives ``FrameworkConfig.from_dict``;
+- ``compile_fingerprint`` names each variant's libraries, every
+  ``csrc/*.cu`` is declared once (``ops/routes.py:LIBRARIES``), with a
+  prewarm check and a counting wrapper, and a JAX config's
+  ``aot_cache_dir`` survives ``FrameworkConfig.from_dict``;
 - ``ServeApp`` places ``aot_cache_dir`` by the JAX app's rule, and its
   ``boot_phases`` carry the JAX keys (restore_s, cache_load_s, compile_s,
   upload_s);
@@ -129,6 +131,34 @@ def test_fingerprint_names_each_variants_libraries(toolkit, engine, live,
     assert fp["toolkit"] == "Cuda compilation tools, release 12.4, V12.4.0"
     assert fp["flags"] == list(_build.NVCC_FLAGS)
     assert set(fp["files"]) == set(want)
+
+
+def test_every_kernel_library_is_declared_once(toolkit):
+    """``csrc/*.cu``, ``ops/routes.py:LIBRARIES``, prewarm's checks and the
+    libraries of the five variants above name the same kernels, and each
+    declared entry point is the wrapper that counts its launches."""
+    import importlib
+
+    from vilbert_multitask_tpu_torch.engine import prewarm
+    from vilbert_multitask_tpu_torch.ops import routes
+
+    csrc = os.path.join(REPO, "vilbert_multitask_tpu_torch", "csrc")
+    sources = {f[:-3] for f in os.listdir(csrc) if f.endswith(".cu")}
+    declared = [lib.name for lib in routes.LIBRARIES]
+    assert len(declared) == len(set(declared))
+    variants = [({}, False), ({"param_dtype": "int8"}, False), ({}, True),
+                ({"param_dtype": "int8"}, True),
+                ({"use_pallas_coattention": False,
+                  "use_pallas_self_attention": False}, False)]
+    built = set().union(*(compile_fingerprint(_cfg(**e), live_extract=live)
+                          ["libraries"] for e, live in variants))
+    assert sources == set(declared) == set(prewarm.CHECKS) == built
+    entries = [lib.entry.rsplit(".", 1) for lib in routes.LIBRARIES]
+    wrappers = tuple(getattr(importlib.import_module(
+        f"vilbert_multitask_tpu_torch.{module}"), name)
+        for module, name in entries)
+    assert routes.wrappers() == wrappers
+    assert all(isinstance(w.launches, int) for w in wrappers)
 
 
 def test_second_prewarm_hits_every_library_and_runs_no_nvcc(toolkit):

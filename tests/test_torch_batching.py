@@ -30,6 +30,7 @@ from vilbert_multitask_tpu.config import (
 )
 from vilbert_multitask_tpu_torch import config as port_config
 from vilbert_multitask_tpu_torch.engine import runtime as port_runtime
+from vilbert_multitask_tpu_torch.ops import routes
 from vilbert_multitask_tpu_torch.resilience import (
     Deadline,
     DeadlineExceeded,
@@ -367,21 +368,27 @@ def test_bundle_flattening_round_trips():
         np.testing.assert_array_equal(back[name], bundle[name].numpy())
 
 
-def test_graph_capture_moves_launch_counts_to_replays(monkeypatch):
-    """engine/graphs.py's bookkeeping, with the CUDA graph API stubbed
-    (there is no card here): capture runs in CUDA's thread_local mode,
-    counts the launches its own thread records (a wrapper called under
-    capture tallies them in its thread-local ``recorded``), leaves the
-    launches another thread makes meanwhile on the counter, each replay
-    adds the recorded launches, and a failed capture raises with the
-    counter untouched."""
+@pytest.mark.parametrize("library", [lib.name for lib in routes.LIBRARIES])
+def test_graph_capture_moves_launch_counts_to_replays(monkeypatch, library):
+    """engine/graphs.py's bookkeeping for each declared kernel wrapper,
+    with the CUDA graph API stubbed (there is no card here): capture runs
+    in CUDA's thread_local mode, counts the launches its own thread
+    records (a wrapper's count under capture, ``ops/routes.py:count``,
+    tallies them in its thread-local ``recorded``), leaves the launches
+    another thread makes meanwhile on the counter, each replay adds the
+    recorded launches, and a failed capture raises with the counter
+    untouched."""
     import contextlib
+    import importlib
     import threading
 
     from vilbert_multitask_tpu_torch.engine import graphs
-    from vilbert_multitask_tpu_torch.ops.coattention import (
-        flash_cross_attention,
-    )
+
+    entry = next(lib.entry for lib in routes.LIBRARIES if lib.name == library)
+    module, name = entry.rsplit(".", 1)
+    wrapper = getattr(importlib.import_module(
+        f"vilbert_multitask_tpu_torch.{module}"), name)
+    assert wrapper in routes.wrappers()
 
     class FakeGraph:
         replays = 0
@@ -394,27 +401,35 @@ def test_graph_capture_moves_launch_counts_to_replays(monkeypatch):
             pass
 
     modes = []
+    capturing = threading.local()  # CUDA's thread_local capture: this thread
 
+    @contextlib.contextmanager
     def fake_graph(graph, pool=None, stream=None,
                    capture_error_mode="global"):
         modes.append(capture_error_mode)
-        return contextlib.nullcontext()
+        capturing.on = True
+        try:
+            yield
+        finally:
+            capturing.on = False
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", fake_graph)
-    monkeypatch.setattr(flash_cross_attention, "launches", 5)
-    monkeypatch.setattr(flash_cross_attention, "recorded", threading.local())
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: getattr(capturing, "on", False))
+    monkeypatch.setattr(wrapper, "launches", 5)
+    monkeypatch.setattr(wrapper, "recorded", threading.local())
 
     def other_replica():
         # Another thread's dispatch during the capture: it launches (and
         # counts) for real, and its thread's tally is its own.
-        flash_cross_attention.launches += 2
-        flash_cross_attention.recorded.n = 7
+        routes.count(wrapper)
+        routes.count(wrapper)
+        wrapper.recorded.n = 7
 
     def step(pack):
-        for _ in range(3):  # what the wrapper does while capturing
-            rec = flash_cross_attention.recorded
-            rec.n = getattr(rec, "n", 0) + 1
+        for _ in range(3):  # the wrapper's count while capturing
+            routes.count(wrapper)
         t = threading.Thread(target=other_replica)
         t.start()
         t.join(timeout=10)
@@ -423,21 +438,21 @@ def test_graph_capture_moves_launch_counts_to_replays(monkeypatch):
     g = graphs.capture(4, step, torch.ones(2), stream=FakeStream(),
                        pool=None)
     assert modes == ["thread_local"]
-    assert flash_cross_attention.launches == 7
-    assert g.launches == {flash_cross_attention: 3}
+    assert wrapper.launches == 7
+    assert g.launches == {wrapper: 3}
     assert g.bucket == 4 and g.spec == ["spec"] and g.flat.tolist() == [2, 2]
     g.replay()
     g.replay()
-    assert FakeGraph.replays == 2 and flash_cross_attention.launches == 13
+    assert FakeGraph.replays == 2 and wrapper.launches == 13
 
     def broken(pack):
-        flash_cross_attention.recorded.n += 1
+        routes.count(wrapper)
         raise RuntimeError("operation not permitted when stream is capturing")
 
     with pytest.raises(RuntimeError, match="capturing"):
         graphs.capture(1, broken, torch.ones(1), stream=FakeStream(),
                        pool=None)
-    assert flash_cross_attention.launches == 13
+    assert wrapper.launches == 13
 
 
 def test_concurrent_dispatches_keep_every_row(world):

@@ -9,9 +9,9 @@ On the CPU:
   refusing a contiguous f32 map with no instance;
 - the plain version equal, bit for bit, to the composition the bottleneck
   ran before, a border where ``relu(bias1) != 0`` included;
-- the route: CPU tensors take the composition, and the counter says so;
-  tensors on any other device take the kernel's route, which raises
-  rather than falling back (on ``meta`` tensors here).
+- the route: CPU tensors and channels-last weights take the composition,
+  counting no launch; tensors on any other device take the kernel's
+  route, which raises rather than falling back (on ``meta`` tensors here).
 
 On the card (``-m cuda``; they skip without one): the kernel at the seven
 served shapes, a non-square map and maps whose sides are not multiples of
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from vilbert_multitask_tpu_torch.config import DetectorConfig
 from vilbert_multitask_tpu_torch.detect import model as dm
 from vilbert_multitask_tpu_torch.ops import grouped_conv as gc
+from vilbert_multitask_tpu_torch.ops import routes
 
 GROUPS = 32
 # (channels, H, W of conv1's map, stride): every shape the X-152 serves on
@@ -213,17 +214,28 @@ def test_block_forward_is_the_old_forward(layout):
         assert torch.equal(block(x), want)
 
 
-def test_cpu_calls_count_as_composition():
+def test_cpu_calls_count_as_composition(monkeypatch):
+    # every block's middle takes the composition on the CPU: the model's
+    # output is the one with the plain version in the wrapper's place, and
+    # no launch is counted
     cfg = DetectorConfig().tiny()
     model = dm.FasterRCNN(cfg)
     model.load_state_dict(dm.init_state_dict(cfg, seed=0))
-    before = model.grouped_conv_stats()
+    image = torch.zeros(cfg.canvas, cfg.canvas, 3)
+    calls = []
+    real = dm.grouped_conv_bn_relu
+    monkeypatch.setattr(dm, "grouped_conv_bn_relu",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    before = gc.grouped_conv_bn_relu.launches
     with torch.inference_mode():
-        model(torch.zeros(cfg.canvas, cfg.canvas, 3), (cfg.canvas, 40))
-    after = model.grouped_conv_stats()
-    blocks = sum(cfg.stage_blocks)
-    assert after["composition"] - before["composition"] == blocks
-    assert after["kernel"] == before["kernel"]
+        got = model(image, (cfg.canvas, 40))
+        monkeypatch.setattr(dm, "grouped_conv_bn_relu",
+                            gc.grouped_conv_bn_relu_plain)
+        want = model(image, (cfg.canvas, 40))
+    assert len(calls) == sum(cfg.stage_blocks)
+    assert gc.grouped_conv_bn_relu.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _meta(args, kw, *, grad: bool = False):
@@ -237,32 +249,41 @@ def _meta(args, kw, *, grad: bool = False):
     "served_layout", "no_instance", "not_contiguous", "needs_grad"])
 def test_other_devices_take_the_kernel_route_and_raise(case):
     # only CPU tensors and channels-last weights fall back to the
-    # composition; here the kernel's route refuses, counting nothing
+    # composition; here the kernel's route refuses, counting nothing: the
+    # shared route raises on a gradient and on a device other than CUDA,
+    # and the kernel's own launch on the reason it would raise on the card
     args, kw = _inputs(128 if case == "no_instance" else 256, 12, 10, 1)
     args, kw = _meta(args, kw, grad=case == "needs_grad")
     if case == "not_contiguous":
         args = (args[0].contiguous(memory_format=torch.channels_last),
                 ) + args[1:]
-    before = {r: gc.CALLS.value(route=r) for r in ("kernel", "composition")}
+    before = gc.grouped_conv_bn_relu.launches
     want = {"served_layout": (ValueError, "CUDA tensors"),
             "no_instance": (ValueError, "no instance"),
             "not_contiguous": (ValueError, "contiguous NCHW"),
             "needs_grad": (RuntimeError, "no backward")}[case]
-    with pytest.raises(want[0], match=want[1]):
+    route = want if case == "needs_grad" else (ValueError, "CUDA tensors")
+    with pytest.raises(route[0], match=route[1]):
         gc.grouped_conv_bn_relu(*args, **kw)
-    assert before == {r: gc.CALLS.value(route=r)
-                      for r in ("kernel", "composition")}
+    if case != "needs_grad":
+        with pytest.raises(want[0], match=want[1]):
+            gc.launch(*args, **kw)
+    assert gc.grouped_conv_bn_relu.launches == before
 
 
 def test_channels_last_weights_count_as_composition():
+    # the composition on the CPU (bit for bit) and on any other device
+    # (meta here, where the NCHW call raises above); no launch counted
     args, kw = _inputs(256, 12, 10, 1)
     weight = args[1].contiguous(memory_format=torch.channels_last)
     x = args[0].contiguous(memory_format=torch.channels_last)
-    before = gc.CALLS.value(route="composition")
+    before = gc.grouped_conv_bn_relu.launches
     got = gc.grouped_conv_bn_relu(x, weight, *args[2:], **kw)
-    assert gc.CALLS.value(route="composition") == before + 1
     assert torch.equal(got, gc.grouped_conv_bn_relu_plain(x, weight,
                                                           *args[2:], **kw))
+    meta = tuple(t.to("meta") for t in (x, weight) + args[2:])
+    assert gc.grouped_conv_bn_relu(*meta, **kw).shape == got.shape
+    assert gc.grouped_conv_bn_relu.launches == before
 
 
 # ------------------------------------------------------- the kernel (card)
@@ -346,13 +367,13 @@ def test_a_captured_call_is_recorded_not_counted(card):
     with torch.inference_mode():
         want = gc.launch(*args, **kw)
         torch.cuda.synchronize()
-        gc.grouped_conv_bn_relu.recorded.n = 0
-        before = gc.CALLS.value(route="kernel")
+        before = gc.grouped_conv_bn_relu.launches
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        with routes.recording() as recorded, torch.cuda.graph(
+                graph, stream=stream):
             out = gc.grouped_conv_bn_relu(*args, **kw)
-        assert gc.grouped_conv_bn_relu.recorded.n == 1
-        assert gc.CALLS.value(route="kernel") == before
+        assert recorded == {gc.grouped_conv_bn_relu: 1}
+        assert gc.grouped_conv_bn_relu.launches == before
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()

@@ -47,7 +47,7 @@ from vilbert_multitask_tpu_torch.checkpoint.convert import from_flax_params
 from vilbert_multitask_tpu_torch.models.vilbert import (
     ViLBertOutput as PortOutput,
 )
-from vilbert_multitask_tpu_torch.ops.coattention import check_no_gradient
+from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
 from vilbert_multitask_tpu_torch.train import losses as pl
 from vilbert_multitask_tpu_torch.train import step as ps
 from vilbert_multitask_tpu_torch.train.convert import TIED, from_jax_train_state
@@ -512,17 +512,24 @@ def test_dropout_without_a_generator_draws_from_the_default():
 
 # ------------------------------------------- the kernel has no backward
 def test_flash_attention_refuses_a_lost_gradient():
-    q = torch.zeros(1, 2, 1, 8, requires_grad=True)
-    k = v = torch.zeros(1, 3, 1, 8)
+    # The wrapper's route on meta tensors (no card here): a gradient it
+    # would lose raises before anything else; a call with none gets past
+    # that gate to the device check
+    q = torch.zeros(1, 3, 1, 8, requires_grad=True, device="meta")
+    k = v = torch.zeros(1, 3, 1, 8, device="meta")
+    bias = torch.zeros(1, 1, 1, 3, device="meta")
     with pytest.raises(RuntimeError, match="no backward"):
-        check_no_gradient(q, k, v)
+        flash_cross_attention(q, k, v, bias)
     with pytest.raises(RuntimeError, match="no backward"):
-        check_no_gradient(k, q, v)
-    with torch.no_grad():
-        check_no_gradient(q, k, v)
-    with torch.inference_mode():
-        check_no_gradient(torch.zeros(1, 2, 1, 8), k, v)
-    check_no_gradient(q.detach(), k, v)
+        flash_cross_attention(k, q, v, bias)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        flash_cross_attention(q, k, v, bias)
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="CUDA tensors"):
+        flash_cross_attention(torch.zeros(1, 3, 1, 8, device="meta"), k, v,
+                              bias)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_cross_attention(q.detach(), k, v, bias)
 
 
 def test_train_state_aliases_the_tied_decoder(tiny_config):

@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,8 +50,8 @@ from torch import nn
 
 from vilbert_multitask_tpu_torch import _build, obs
 from vilbert_multitask_tpu_torch.config import DetectorConfig
+from vilbert_multitask_tpu_torch.ops import routes
 from vilbert_multitask_tpu_torch.ops.grouped_conv import (
-    CALLS as GROUPED_CONV_CALLS,
     grouped_conv_bn_relu,
     lies_channels_last,
 )
@@ -417,33 +416,23 @@ def _launch_roi(feats, boxes, strides, resolution, sampling, *,
     return out
 
 
+@routes.kernel_wrapper("roi_align")
 def roi_align(feats: Sequence[torch.Tensor], boxes: torch.Tensor,
               strides: Sequence[float], resolution: int,
               sampling: int) -> torch.Tensor:
     """Multi-level ROIAlign: four (H, W, C) level maps (P2..P5), (R, 4)
     pixel boxes → (R, res, res, C), each box from its :func:`fpn_level`.
     CUDA tensors go to the kernel (counted in ``roi_align.launches``), CPU
-    tensors to :func:`roi_align_plain`."""
-    if boxes.device.type == "cpu":
-        return roi_align_plain(feats, boxes, strides, resolution, sampling)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"no ROIAlign kernel for device {boxes.device}")
-    _check_roi(feats, boxes, strides)
-    out = _launch_roi(feats, boxes, strides, resolution, sampling)
-    if torch.cuda.is_current_stream_capturing():
-        rec = roi_align.recorded
-        rec.n = getattr(rec, "n", 0) + 1
-    else:
-        roi_align.launches += 1
-    return out
+    tensors to :func:`roi_align_plain` (``ops/routes.py``)."""
 
+    def launch():
+        _check_roi(feats, boxes, strides)
+        return _launch_roi(feats, boxes, strides, resolution, sampling)
 
-# Kernel launches since the last reset (chip_smoke.py zeroes it before a
-# path and reads it after); CPU calls never count.
-roi_align.launches = 0
-# Calls recorded into a CUDA graph by this thread's capture (see
-# engine/graphs.py): they launch nothing now, and a replay adds them.
-roi_align.recorded = threading.local()
+    return routes.launch_or_plain(
+        "roi_align", (*feats, boxes),
+        lambda: roi_align_plain(feats, boxes, strides, resolution, sampling),
+        launch)
 
 
 class FasterRCNN(nn.Module):
@@ -485,17 +474,6 @@ class FasterRCNN(nn.Module):
                    torch.tensor(counts, dtype=torch.int64).to(device))
             self._static[key] = got
         return got
-
-    @staticmethod
-    def grouped_conv_stats() -> Dict[str, int]:
-        """Bottleneck middles run by every detector of this process, by
-        route (``kernel``: ``csrc/grouped_conv.cu``; ``composition``: the
-        torch ops), as the process-wide counter
-        ``vmt_detect_grouped_conv_calls`` counts them: take the difference
-        around a call for one model's. On the card's f32 path 50 kernel
-        calls an image at the X-152's depth, 0 composed."""
-        return {route: int(GROUPED_CONV_CALLS.value(route=route))
-                for route in ("kernel", "composition")}
 
     @property
     def memory_format(self) -> torch.memory_format:

@@ -38,28 +38,24 @@ import time
 from typing import Any, Dict, List, Optional
 
 from vilbert_multitask_tpu_torch import _build
+from vilbert_multitask_tpu_torch.ops import routes
 
 
 def compile_fingerprint(cfg, *, live_extract: bool = False
                         ) -> Dict[str, Any]:
     """Everything that keys the variant's compiled code: the libraries it
-    launches (``layer_norm``, ``softmax`` and ``dense_attention`` in every
-    variant: every forward runs the LayerNorm kernel, and the text
-    attentions' dense core as one kernel in bf16 or through the softmax's
-    in f32 and for collected bridge maps;
-    ``flash_attn`` whenever the hand-written attention is selected,
-    ``int8_linear`` with int8 storage, ``nms``, ``roi_align`` and
-    ``grouped_conv`` with live extraction), nvcc's flags, the toolkit's release line and each
+    launches (``ops/routes.py:LIBRARIES``, in their order: the ``every``
+    variant's always, ``flash`` whenever the hand-written attention is
+    selected, ``int8`` with int8 storage, ``live_extract`` with live
+    extraction), nvcc's flags, the toolkit's release line and each
     library's file name under a cache root."""
     ecfg = cfg.engine
-    libs = []
-    if ecfg.use_pallas_coattention or ecfg.use_pallas_self_attention:
-        libs.append("flash_attn")
-    libs += ["layer_norm", "softmax", "dense_attention"]
-    if ecfg.param_dtype == "int8":
-        libs.append("int8_linear")
-    if live_extract:
-        libs += ["nms", "roi_align", "grouped_conv"]
+    variants = {"every": True,
+                "flash": (ecfg.use_pallas_coattention
+                          or ecfg.use_pallas_self_attention),
+                "int8": ecfg.param_dtype == "int8",
+                "live_extract": live_extract}
+    libs = [lib.name for lib in routes.LIBRARIES if variants[lib.variant]]
     return {
         "libraries": libs,
         "flags": list(_build.NVCC_FLAGS),

@@ -37,12 +37,12 @@ updates them in place only (``load_params`` copies into them).
   to the capture rules, and it makes no unsafe call inside the captured
   step.
 - A kernel wrapper counts its launches in Python, which a replay does not
-  run. A wrapper called while its thread's current stream is capturing
-  counts into its thread-local ``recorded`` tally instead of
-  ``launches`` (capture launches nothing), :func:`capture` reads that
-  tally, and :meth:`BucketGraph.replay` adds it to ``launches`` for every
-  replay: the counters keep counting kernel launches on the card, also
-  while other threads launch during a capture.
+  run. A call made while its thread's stream captures launches nothing
+  and is recorded instead (``ops/routes.py``); :func:`capture` takes what
+  its thread recorded, and :meth:`BucketGraph.replay` adds it to each
+  wrapper's ``launches`` for every replay: the counters keep counting
+  kernel launches on the card, also while other threads launch during a
+  capture.
 """
 
 from __future__ import annotations
@@ -54,18 +54,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from vilbert_multitask_tpu_torch.config import EngineConfig
-from vilbert_multitask_tpu_torch.detect.model import roi_align
 from vilbert_multitask_tpu_torch.ops import dense_attention as dense_ops
-from vilbert_multitask_tpu_torch.ops.coattention import flash_cross_attention
-from vilbert_multitask_tpu_torch.ops.int8_linear import int8_linear
-from vilbert_multitask_tpu_torch.ops.layer_norm import add_layer_norm
-from vilbert_multitask_tpu_torch.ops.nms import nms_mask
-from vilbert_multitask_tpu_torch.ops.softmax import scaled_masked_softmax
-
-# Every hand-written kernel's wrapper (each carries a ``launches`` count).
-KERNEL_WRAPPERS = (flash_cross_attention, nms_mask, roi_align, int8_linear,
-                   add_layer_norm, scaled_masked_softmax,
-                   dense_ops.dense_attention)
+from vilbert_multitask_tpu_torch.ops import routes
 
 
 def launches_per_forward(mcfg, rows: int, *,
@@ -149,14 +139,12 @@ def capture(bucket: int, step: Callable[[torch.Tensor], Tuple],
     """Record ``step(static_pack) -> (out, flat, spec)`` into a CUDA graph
     on ``stream``, sharing the memory ``pool``. The caller has run ``step``
     eagerly on ``stream`` once already. Raises on any capture error."""
-    for w in KERNEL_WRAPPERS:
-        w.recorded.n = 0
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=stream,
-                          capture_error_mode="thread_local"):
+    with routes.recording() as recorded, torch.cuda.graph(
+            graph, pool=pool, stream=stream,
+            capture_error_mode="thread_local"):
         out, flat, spec = step(static_pack)
-    recorded = {w: w.recorded.n for w in KERNEL_WRAPPERS if w.recorded.n}
     stream.synchronize()
     return BucketGraph(bucket, graph, static_pack, out, flat, spec,
                        recorded, time.perf_counter() - t0)

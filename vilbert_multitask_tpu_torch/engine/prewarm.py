@@ -13,14 +13,12 @@ mounts the directory boots with no nvcc run:
     python -m vilbert_multitask_tpu_torch.engine.prewarm \\
         --cache-dir <dir> [--dtype float32|bfloat16|int8] [--live-extract]
 
-One process covers one variant: every variant builds ``flash_attn``,
-``layer_norm``, ``softmax`` and ``dense_attention``; ``--dtype int8`` adds
-``int8_linear``,
-``--live-extract`` the detector's ``nms``, ``roi_align`` and
-``grouped_conv``. It prints one
-JSON report (each library: ``hit`` or ``built``, nvcc's seconds, the
-verification's error and the fingerprint) and exits non-zero without nvcc,
-without a card, or when a build or a check fails: it never skips.
+One process covers one variant, whose libraries ``ops/routes.py:LIBRARIES``
+declares (``--dtype int8`` adds the ``int8`` variant's, ``--live-extract``
+the detector's). It prints one JSON report (each library: ``hit`` or
+``built``, nvcc's seconds, the verification's error and the fingerprint)
+and exits non-zero without nvcc, without a card, or when a build or a
+check fails: it never skips.
 """
 
 from __future__ import annotations
@@ -175,6 +173,12 @@ CHECKS = {"flash_attn": _check_flash_attn,
           "grouped_conv": _check_grouped_conv}
 
 
+def _declared(variant: str) -> str:
+    from vilbert_multitask_tpu_torch.ops.routes import LIBRARIES
+
+    return ", ".join(lib.name for lib in LIBRARIES if lib.variant == variant)
+
+
 def main(argv=None) -> int:
     from vilbert_multitask_tpu_torch.config import FrameworkConfig
 
@@ -189,10 +193,10 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", default=None,
                    choices=("float32", "bfloat16", "int8"),
                    help="prewarm this param-storage variant instead of the "
-                        "config default (int8 adds int8_linear)")
+                        "config default (int8 adds %s)" % _declared("int8"))
     p.add_argument("--live-extract", action="store_true",
                    help="the live-extraction variant (adds the detector's "
-                        "nms, roi_align and grouped_conv)")
+                        "%s)" % _declared("live_extract"))
     args = p.parse_args(argv)
 
     import torch

@@ -29,11 +29,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
 from vilbert_multitask_tpu_torch import _build
+from vilbert_multitask_tpu_torch.ops import routes
 
 # Keys per tile, shared by the bf16 kernel (BLOCK_K in csrc/flash_attn.cu)
 # and the plain version, so both run the same recurrence over the same tiles.
@@ -86,22 +86,6 @@ def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
     return out.to(q.dtype).permute(0, 2, 1, 3)
-
-
-def check_no_gradient(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> None:
-    """Raise ``RuntimeError`` when autograd would need a gradient through
-    the kernel: it has no backward (nor has the JAX package's Pallas
-    kernel), and its output would carry no ``grad_fn``, so the projections
-    before it would train with no gradient through attention. Training
-    runs the dense path (``use_pallas_*=False``); a gradient-free forward
-    (``torch.no_grad`` / ``inference_mode``) takes the kernel."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_cross_attention has no backward: q, k or v requires "
-            "grad with gradients enabled. Train with use_pallas_coattention"
-            "=False and use_pallas_self_attention=False, or run the forward "
-            "under torch.no_grad()")
 
 
 def _bind(lib: ctypes.CDLL):
@@ -164,38 +148,23 @@ def _launch(q, k, v, bias, *, lib: ctypes.CDLL = None) -> torch.Tensor:
     return out
 
 
+@routes.kernel_wrapper("flash_attn")
 def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor) -> torch.Tensor:
     """Blockwise attention; returns the context ``(B, Nq, H, D)`` in q's
     dtype. CUDA tensors go to the kernel (counted in
-    ``flash_cross_attention.launches``; :func:`check_no_gradient` first),
-    CPU tensors to the plain version, whose torch ops autograd follows."""
+    ``flash_cross_attention.launches``), CPU tensors to the plain version,
+    whose torch ops autograd follows (``ops/routes.py``)."""
     _check_shapes(q, k, v, bias)
-    devices = {t.device for t in (q, k, v, bias)}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v, bias on different devices: {devices}")
-    if q.device.type == "cpu":
-        return flash_cross_attention_plain(q, k, v, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
-    check_no_gradient(q, k, v)
-    if q.dtype not in _DTYPE_CODES or any(
-            t.dtype != q.dtype for t in (k, v, bias)):
-        raise TypeError("flash_cross_attention takes float32 or bfloat16 "
-                        "q, k, v and bias of one dtype, got "
-                        f"{[str(t.dtype) for t in (q, k, v, bias)]}")
-    out = _launch(q, k, v, bias)
-    if torch.cuda.is_current_stream_capturing():
-        rec = flash_cross_attention.recorded
-        rec.n = getattr(rec, "n", 0) + 1
-    else:
-        flash_cross_attention.launches += 1
-    return out
 
+    def launch():
+        if q.dtype not in _DTYPE_CODES or any(
+                t.dtype != q.dtype for t in (k, v, bias)):
+            raise TypeError("flash_cross_attention takes float32 or "
+                            "bfloat16 q, k, v and bias of one dtype, got "
+                            f"{[str(t.dtype) for t in (q, k, v, bias)]}")
+        return _launch(q, k, v, bias)
 
-# Kernel launches since the last reset (chip_smoke.py zeroes it before the
-# main path and reads it after); CPU calls never count.
-flash_cross_attention.launches = 0
-# Calls recorded into a CUDA graph by this thread's capture: they launch
-# nothing now, and engine/graphs.py adds them to ``launches`` per replay.
-flash_cross_attention.recorded = threading.local()
+    return routes.launch_or_plain(
+        "flash_attn", (q, k, v, bias),
+        lambda: flash_cross_attention_plain(q, k, v, bias), launch)

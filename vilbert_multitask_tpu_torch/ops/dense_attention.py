@@ -37,13 +37,12 @@ No probabilities come out: the self-attention's are never surfaced
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
 from vilbert_multitask_tpu_torch import _build
-from vilbert_multitask_tpu_torch.ops.routes import refuse_gradient
+from vilbert_multitask_tpu_torch.ops import routes
 from vilbert_multitask_tpu_torch.ops.softmax import (
     scaled_masked_softmax_plain,
 )
@@ -101,7 +100,7 @@ def _check_launchable(q, k, v, bias) -> None:
     """Raise unless the kernel takes these tensors as they lie. Needs no
     card."""
     _check_shapes(q, k, v, bias)
-    refuse_gradient("dense_attention", q, k, v, bias)
+    routes.refuse_gradient("dense_attention", q, k, v, bias)
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16} or (
             bias is not None and bias.dtype not in _BIAS_CODES):
         raise TypeError(
@@ -148,33 +147,15 @@ def _launch(q, k, v, bias, scale, *, lib: ctypes.CDLL = None
     return out
 
 
+@routes.kernel_wrapper("dense_attention")
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor],
                     scale: float) -> torch.Tensor:
     """The attention's context ``(B, Nq, H·D)`` in q's dtype. CUDA tensors
-    go to the kernel (counted in ``dense_attention.launches``; a tensor
-    that needs a gradient raises), CPU tensors to the plain version."""
+    go to the kernel (counted in ``dense_attention.launches``), CPU
+    tensors to the plain version (``ops/routes.py``)."""
     _check_shapes(q, k, v, bias)
-    tensors = [t for t in (q, k, v, bias) if t is not None]
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v and bias on different devices: {devices}")
-    if q.device.type == "cpu":
-        return dense_attention_plain(q, k, v, bias, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no dense_attention for device {q.device}")
-    out = _launch(q, k, v, bias, scale)
-    if torch.cuda.is_current_stream_capturing():
-        rec = dense_attention.recorded
-        rec.n = getattr(rec, "n", 0) + 1
-    else:
-        dense_attention.launches += 1
-    return out
-
-
-# Kernel launches since the last reset (chip_smoke.py zeroes it before a
-# path and reads it after); CPU calls never count.
-dense_attention.launches = 0
-# Calls recorded into a CUDA graph by this thread's capture: they launch
-# nothing now, and engine/graphs.py adds them to ``launches`` per replay.
-dense_attention.recorded = threading.local()
+    return routes.launch_or_plain(
+        "dense_attention", (q, k, v, bias),
+        lambda: dense_attention_plain(q, k, v, bias, scale),
+        lambda: _launch(q, k, v, bias, scale))

@@ -15,9 +15,8 @@ which XLA fuses; here everything after ``conv1`` is one launch of
   kernel, and raises where the kernel cannot take it, as
   ``detect/model.py:roi_align`` does: a non-contiguous map, another dtype,
   a group width or stride with no instance, a call autograd would record.
-  Each call counts in ``vmt_detect_grouped_conv_calls{route="kernel"|
-  "composition"}``; a kernel call recorded into a CUDA graph counts in
-  ``grouped_conv_bn_relu.recorded`` instead, for the replays to add.
+  Kernel calls count in ``grouped_conv_bn_relu.launches``
+  (``ops/routes.py``).
 - :func:`grouped_conv_bn_relu_plain` is the composition the bottleneck
   ran before: ``F.relu(bn2(conv2(F.relu(bn1(h)))))``, op for op.
 - :func:`launch` is the kernel alone: it raises on what the kernel does not
@@ -28,15 +27,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import threading
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from vilbert_multitask_tpu_torch import _build
-from vilbert_multitask_tpu_torch.obs.instruments import REGISTRY
-from vilbert_multitask_tpu_torch.ops.routes import refuse_gradient
+from vilbert_multitask_tpu_torch.ops import routes
 
 BLOCK_CHANNELS = 64  # output channels a block of the kernel owns
 # (group width, stride) pairs with an instance: the X-152's (its stride-2
@@ -44,12 +41,6 @@ BLOCK_CHANNELS = 64  # output channels a block of the kernel owns
 INSTANCES = ((8, 1), (16, 1), (16, 2), (32, 1), (32, 2), (64, 1), (64, 2))
 _GRID_LIMIT = 65535  # the grid's y (channel blocks) and z (images)
 _INT32_LIMIT = 2 ** 31 - 1  # the kernel's per-image indices
-
-CALLS = REGISTRY.counter(
-    "vmt_detect_grouped_conv_calls",
-    "Bottleneck middles (bn1, ReLU, grouped 3x3 conv, bn2, ReLU) run, by "
-    "route: the hand-written kernel or the torch composition.",
-    labelnames=("route",))
 
 Pair = Union[int, Tuple[int, ...]]
 
@@ -212,30 +203,17 @@ def lies_channels_last(weight: torch.Tensor) -> bool:
             and not weight.is_contiguous())
 
 
+@routes.kernel_wrapper("grouped_conv")
 def grouped_conv_bn_relu(h, weight, scale1, bias1, scale2, bias2, *,
                          stride: Pair, padding: Pair,
                          groups: int) -> torch.Tensor:
     """``relu(bn2(conv2(relu(bn1(h)))))``: the composition for CPU tensors
     and channels-last weights, else the kernel, which raises where it
-    cannot take the call (module docstring); counted by route in
-    ``vmt_detect_grouped_conv_calls``."""
+    cannot take the call (module docstring)."""
     args = (h, weight, scale1, bias1, scale2, bias2)
     kw = dict(stride=stride, padding=padding, groups=groups)
-    if h.device.type == "cpu" or lies_channels_last(weight):
-        CALLS.inc(route="composition")
+    if lies_channels_last(weight):
         return grouped_conv_bn_relu_plain(*args, **kw)
-    refuse_gradient("the grouped_conv kernel", *args)
-    out = launch(*args, **kw)
-    if torch.cuda.is_current_stream_capturing():
-        rec = grouped_conv_bn_relu.recorded
-        rec.n = getattr(rec, "n", 0) + 1
-    else:
-        CALLS.inc(route="kernel")
-    return out
-
-
-# Kernel calls recorded into a CUDA graph by this thread's capture: they
-# launch nothing now, and whoever replays the graph adds them to the
-# counter's kernel route per replay (engine/graphs.py does so for the
-# other wrappers' ``launches``).
-grouped_conv_bn_relu.recorded = threading.local()
+    return routes.launch_or_plain(
+        "grouped_conv", args, lambda: grouped_conv_bn_relu_plain(*args, **kw),
+        lambda: launch(*args, **kw))

@@ -50,6 +50,7 @@ from typing import List, Tuple
 import torch
 
 from vilbert_multitask_tpu_torch import _build
+from vilbert_multitask_tpu_torch.ops import routes
 
 W_ROW_ALIGN = 16  # bytes: a 16-byte copy of an int8 row; TMA's stride unit
 _X_PIECE = 8  # bf16 elements in one 16-byte copy of x
@@ -355,6 +356,7 @@ def _launch(x, q, scale, bias, *, scale_bf16: bool = False,
     return out
 
 
+@routes.kernel_wrapper("int8_linear")
 def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor = None, *,
                 scale_bf16: bool = False) -> torch.Tensor:
@@ -376,30 +378,14 @@ def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         label = kernel_label(x.dtype, x.shape[-2], q.shape[-2], q.shape[-1],
                              q.shape[0] if q.dim() == 3 else 1)
         tally[label] = tally.get(label, 0) + 1
-    tensors = (x, q, scale) + ((bias,) if bias is not None else ())
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"x, q, scale, bias on different devices: {devices}")
-    if x.device.type == "cpu":
-        out = int8_linear_plain(x, q, scale, bias)
-    elif x.device.type != "cuda":
-        raise ValueError(f"no int8 linear for device {x.device}")
-    else:
+
+    def launch():
         if x.dtype not in _DTYPE_CODES:
             raise TypeError(f"int8_linear takes float32 or bfloat16 x, got "
                             f"{x.dtype}")
-        out = _launch(x, q, scale, bias, scale_bf16=scale_bf16)
-        if torch.cuda.is_current_stream_capturing():
-            rec = int8_linear.recorded
-            rec.n = getattr(rec, "n", 0) + 1
-        else:
-            int8_linear.launches += 1
+        return _launch(x, q, scale, bias, scale_bf16=scale_bf16)
+
+    out = routes.launch_or_plain("int8_linear", (x, q, scale, bias),
+                                 lambda: int8_linear_plain(x, q, scale, bias),
+                                 launch)
     return out.reshape(*lead, q.shape[-2]) if q.dim() == 2 else out
-
-
-# Kernel launches since the last reset (chip_smoke.py zeroes it before a
-# path and reads it after); CPU calls never count.
-int8_linear.launches = 0
-# Calls recorded into a CUDA graph by this thread's capture: they launch
-# nothing now, and engine/graphs.py adds them to ``launches`` per replay.
-int8_linear.recorded = threading.local()

@@ -43,17 +43,13 @@ f32 or bf16 (the int8 mode's rounded parameters).
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from vilbert_multitask_tpu_torch import _build
-from vilbert_multitask_tpu_torch.ops.routes import (
-    records_gradient,
-    refuse_gradient,
-)
+from vilbert_multitask_tpu_torch.ops import routes
 
 CHUNK = 8  # elements a lane reads at once (16 bytes of bf16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,39 +153,19 @@ def _launch(h, residual, weight, bias, eps, groups, *,
     return out
 
 
+@routes.kernel_wrapper("layer_norm")
 def add_layer_norm(h: torch.Tensor, residual: Optional[torch.Tensor],
                    weight: torch.Tensor, bias: torch.Tensor,
                    eps: float) -> torch.Tensor:
     """LayerNorm of ``h + residual`` (or of ``h``) over the last axis with
     flax's numerics. CUDA tensors go to the kernel (counted in
-    ``add_layer_norm.launches``; a tensor that needs a gradient raises),
-    CPU tensors to the plain version."""
+    ``add_layer_norm.launches``), CPU tensors to the plain version
+    (``ops/routes.py``)."""
     groups = _check_shapes(h, residual, weight, bias)
-    tensors = [t for t in (h, residual, weight, bias) if t is not None]
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"h, residual, weight, bias on different devices: "
-                         f"{devices}")
-    if h.device.type == "cpu":
-        return add_layer_norm_plain(h, residual, weight, bias, eps)
-    if h.device.type != "cuda":
-        raise ValueError(f"no add_layer_norm for device {h.device}")
-    refuse_gradient("add_layer_norm", *tensors)
-    out = _launch(h, residual, weight, bias, eps, groups)
-    if torch.cuda.is_current_stream_capturing():
-        rec = add_layer_norm.recorded
-        rec.n = getattr(rec, "n", 0) + 1
-    else:
-        add_layer_norm.launches += 1
-    return out
-
-
-# Kernel launches since the last reset (chip_smoke.py zeroes it before a
-# path and reads it after); CPU calls never count.
-add_layer_norm.launches = 0
-# Calls recorded into a CUDA graph by this thread's capture: they launch
-# nothing now, and engine/graphs.py adds them to ``launches`` per replay.
-add_layer_norm.recorded = threading.local()
+    return routes.launch_or_plain(
+        "layer_norm", (h, residual, weight, bias),
+        lambda: add_layer_norm_plain(h, residual, weight, bias, eps),
+        lambda: _launch(h, residual, weight, bias, eps, groups))
 
 
 def layer_norm_recorded(h: torch.Tensor, residual: Optional[torch.Tensor],
@@ -213,6 +189,6 @@ def layer_norm(h: torch.Tensor, residual: Optional[torch.Tensor],
     """The model's LayerNorm sites: :func:`layer_norm_recorded` for a call
     autograd records (the kernel has no backward), :func:`add_layer_norm`
     otherwise."""
-    if records_gradient(h, residual, weight, bias):
+    if routes.records_gradient(h, residual, weight, bias):
         return layer_norm_recorded(h, residual, weight, bias, eps)
     return add_layer_norm(h, residual, weight, bias, eps)

@@ -30,12 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from vilbert_multitask_tpu_torch import _build
+from vilbert_multitask_tpu_torch.ops import routes
 
 Valid = Optional[Union[Sequence[int], torch.Tensor]]
 
@@ -226,6 +226,7 @@ def _launch(b: torch.Tensor, s: torch.Tensor, valid: Optional[torch.Tensor],
     return keep
 
 
+@routes.kernel_wrapper("nms")
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
              iou_threshold: float = 0.5, *, valid: Valid = None
              ) -> torch.Tensor:
@@ -233,30 +234,21 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
     ``(G, N)`` groups, boxes ``(N, 4)`` (shared) or ``(G, N, 4)`` xyxy f32,
     ``valid`` the per-group count of boxes to consider (the first ones; the
     rest are never kept). CUDA tensors go to the kernel (counted in
-    ``nms_mask.launches``), CPU tensors to the plain version."""
-    if scores.device.type == "cpu":
-        return nms_mask_plain(boxes, scores, iou_threshold, valid=valid)
-    if scores.device.type != "cuda":
-        raise ValueError(f"no NMS kernel for device {scores.device}")
-    b, s, n_valid, single = _batched(boxes, scores, valid)
-    if b.dtype != torch.float32 or s.dtype != torch.float32:
-        raise TypeError(f"nms_mask takes float32 boxes and scores, got "
-                        f"{b.dtype} and {s.dtype}")
-    keep = _launch(b, s, n_valid, iou_threshold)
-    if torch.cuda.is_current_stream_capturing():
-        rec = nms_mask.recorded
-        rec.n = getattr(rec, "n", 0) + 1
-    else:
-        nms_mask.launches += 1
-    return keep[0] if single else keep
+    ``nms_mask.launches``), CPU tensors to the plain version
+    (``ops/routes.py``)."""
 
+    def launch():
+        b, s, n_valid, single = _batched(boxes, scores, valid)
+        if b.dtype != torch.float32 or s.dtype != torch.float32:
+            raise TypeError(f"nms_mask takes float32 boxes and scores, got "
+                            f"{b.dtype} and {s.dtype}")
+        keep = _launch(b, s, n_valid, iou_threshold)
+        return keep[0] if single else keep
 
-# Kernel launches since the last reset (chip_smoke.py zeroes it before a
-# path and reads it after); CPU calls never count.
-nms_mask.launches = 0
-# Calls recorded into a CUDA graph by this thread's capture (see
-# engine/graphs.py): they launch nothing now, and a replay adds them.
-nms_mask.recorded = threading.local()
+    return routes.launch_or_plain(
+        "nms", (boxes, scores),
+        lambda: nms_mask_plain(boxes, scores, iou_threshold, valid=valid),
+        launch)
 
 
 def select_top_regions(boxes: torch.Tensor, class_scores: torch.Tensor,

@@ -30,16 +30,12 @@ The probabilities are the output: the bridges' attention maps
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
 from vilbert_multitask_tpu_torch import _build
-from vilbert_multitask_tpu_torch.ops.routes import (
-    records_gradient,
-    refuse_gradient,
-)
+from vilbert_multitask_tpu_torch.ops import routes
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -117,38 +113,18 @@ def _launch(scores, bias, scale, *, lib: ctypes.CDLL = None
     return out
 
 
+@routes.kernel_wrapper("softmax")
 def scaled_masked_softmax(scores: torch.Tensor, bias: Optional[torch.Tensor],
                           scale: float) -> torch.Tensor:
     """Attention probabilities ``(B, H, Nq, Nk)`` in the scores' dtype.
     CUDA tensors go to the kernel (counted in
-    ``scaled_masked_softmax.launches``; a tensor that needs a gradient
-    raises), CPU tensors to the plain version."""
+    ``scaled_masked_softmax.launches``), CPU tensors to the plain version
+    (``ops/routes.py``)."""
     _check_shapes(scores, bias)
-    tensors = [t for t in (scores, bias) if t is not None]
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"scores and bias on different devices: {devices}")
-    if scores.device.type == "cpu":
-        return scaled_masked_softmax_plain(scores, bias, scale)
-    if scores.device.type != "cuda":
-        raise ValueError(f"no scaled_masked_softmax for device "
-                         f"{scores.device}")
-    refuse_gradient("scaled_masked_softmax", *tensors)
-    out = _launch(scores, bias, scale)
-    if torch.cuda.is_current_stream_capturing():
-        rec = scaled_masked_softmax.recorded
-        rec.n = getattr(rec, "n", 0) + 1
-    else:
-        scaled_masked_softmax.launches += 1
-    return out
-
-
-# Kernel launches since the last reset (chip_smoke.py zeroes it before a
-# path and reads it after); CPU calls never count.
-scaled_masked_softmax.launches = 0
-# Calls recorded into a CUDA graph by this thread's capture: they launch
-# nothing now, and engine/graphs.py adds them to ``launches`` per replay.
-scaled_masked_softmax.recorded = threading.local()
+    return routes.launch_or_plain(
+        "softmax", (scores, bias),
+        lambda: scaled_masked_softmax_plain(scores, bias, scale),
+        lambda: _launch(scores, bias, scale))
 
 
 def attention_probs(scores: torch.Tensor, bias: Optional[torch.Tensor],
@@ -156,6 +132,6 @@ def attention_probs(scores: torch.Tensor, bias: Optional[torch.Tensor],
     """The dense attention's site: the plain version for a call autograd
     records (the kernel has no backward), :func:`scaled_masked_softmax`
     otherwise."""
-    if records_gradient(scores, bias):
+    if routes.records_gradient(scores, bias):
         return scaled_masked_softmax_plain(scores, bias, scale)
     return scaled_masked_softmax(scores, bias, scale)
